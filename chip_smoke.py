@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of tpuasr_torch: the batch serving path on one card.
+"""GPU smoke run of tpuasr_torch: the training and batch serving paths
+on one card.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -9,16 +10,30 @@ Phases, one JSON line each; any failure raises and the run exits
 non-zero without printing a result:
 
   1. device  — the card's name, count, and nvidia-smi name and power limit.
-  2. build   — nvcc builds every kernel of the path from the sources in
-               tpuasr_torch/ops/csrc (sm_90a); build seconds and ptxas'
-               registers and shared memory.
+  2. build   — nvcc builds every kernel of the paths from the sources in
+               tpuasr_torch/ops/csrc (sm_90a), one nvcc per source, all
+               started together; build seconds and ptxas' registers,
+               shared memory and spills.
   3. kernel  — each kernel's wrapper against its plain PyTorch version
-               on the card, at the serving shape and small edge shapes,
-               with the tolerances below; then CUDA-event times of the
-               kernel, the plain version and one library call
-               (cuDNN nn.GRU, timed only as a yardstick) beside the
-               bound computed from the shapes.
-  4. serve   — a full-width flagship checkpoint (5 BiGRU-800 layers,
+               on the card, at the main paths' shapes and small edge
+               shapes, with the tolerances below; then CUDA-event times
+               of the kernel, the plain version and one library call
+               (cuDNN nn.GRU forward, its backward, F.ctc_loss; timed
+               only as yardsticks) beside the bound computed from the
+               shapes: K1f (BiGRU forward), K1b (BiGRU backward), K2a
+               and K2b (CTC alpha and beta).
+  4. train   — the training main path: a synthetic 5 s corpus (64
+               training and 32 validation utterances) and
+               tpuasr_torch.cli.train.main on the full-width flagship
+               (5 BiGRU-800 layers, 44 classes, bf16, batch 32, 2
+               epochs, checkpoints). Every step's loss and grad_norm must
+               be finite with 32 usable utterances, the launch counts of
+               all four kernels (zeroed just before) must have grown, and
+               the written checkpoint must transcribe a WAV through the
+               serving path. Then one train step through the kernels
+               against the plain versions on the same weights and batch,
+               and the time split of one train step.
+  5. serve   — a full-width flagship checkpoint (5 BiGRU-800 layers,
                44 classes, bf16 compute, seeded random weights) written
                with the port's save_checkpoint and served by
                TranscriptionService + make_http_server on 127.0.0.1:
@@ -31,7 +46,7 @@ non-zero without printing a result:
                Then one lone request's latency and a time split of one
                service batch (frontend, convs, RNN layers, GRU kernel,
                head, decode).
-  5. a {"kernels": [...]} line, then the nvidia-smi line, then the last
+  6. a {"kernels": [...]} line, then the nvidia-smi line, then the last
      line {"ok": true, "device": {...}}.
 
 Tolerances. BiGRU kernel vs plain: f32 max-abs <= 1e-4 (both sum the
@@ -41,10 +56,31 @@ different summation order can move one rounding by an ulp, 2**-8
 relative, and the loop carries it on). Full model, kernel vs plain GRU,
 bf16: logits mean-abs <= 1e-2, max-abs <= 0.25 and per-frame argmax
 agreement >= 0.98 (the ulp differences above pass through 5 layers).
+
+BiGRU backward kernel vs plain, packed gate gradients: f32 max-abs
+<= 1e-4 of the largest |packed| (the same f32 products in another
+order); bf16 max-abs <= 2e-2 and mean-abs <= 1e-3 of it (packed is
+rounded to bf16, 2**-8 relative, and a recomputed gate whose rounding
+moves flips one ulp of the output). Through the whole autograd function
+(forward and backward kernels vs plain): dxg, dw and db relative norm
+error <= 1e-4 in f32, <= 2e-2 in bf16 (the forward's bf16 h differences
+enter the recomputed gates).
+CTC kernels vs plain: per-utterance loss rel <= 1e-5 and dL/dlogits
+max-abs <= 2e-4 (tests/test_pallas_ctc.py's tolerances; the kernels
+sum the same exponentials in the same order, so only the exp/log
+implementations' last bits differ). F.ctc_loss, a third opinion on
+feasible rows: loss rel <= 1e-4 (its own log-space order).
+One full-width bf16 train step, kernels vs plain versions on the same
+weights and batch: loss rel <= 1e-2 and each parameter's gradient
+relative norm error <= 5e-2, because bf16 activations (h rounded every
+step, the kernel and the plain loop summing in different orders) move
+by ulps of 2**-8 that five layers, a 251-step recurrence and the
+backward carry on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import subprocess
@@ -60,6 +96,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 
 
 def emit(phase: str, **kw) -> None:
@@ -191,6 +228,489 @@ def phase_kernel():
             "bound_ms": bound_ms, "bound_by": bound_by})
         emit("kernel_time", kernel="bigru_fwd", **timings[-1])
     return results[0], timings
+
+
+@contextlib.contextmanager
+def plain_versions(on: bool = True):
+    """Every kernel wrapper that the autograd functions call replaced by
+    its plain PyTorch version (no-op when ``on`` is False)."""
+    import tpuasr_torch.ops.ctc as ctc_mod
+    import tpuasr_torch.ops.gru as gru_mod
+
+    if not on:
+        yield
+        return
+    with mock.patch.multiple(gru_mod, bigru_forward=gru_mod.bigru_reference,
+                             bigru_backward=gru_mod.bigru_backward_reference), \
+            mock.patch.multiple(ctc_mod, ctc_alpha=ctc_mod.ctc_alpha_reference,
+                                ctc_beta=ctc_mod.ctc_beta_reference):
+        yield
+
+
+def rel_norm_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def bigru_bwd_bound(t, b, h, nd, itemsize):
+    flops = 2 * 2.0 * nd * t * b * h * 3 * h  # hg recomputed, then dhg @ w_h^T
+    nbytes = (t * nd * b * 3 * h * itemsize  # xg
+              + 2 * t * nd * b * h * itemsize  # h_prev, dy
+              + t * nd * b * 4 * h * itemsize  # packed
+              + nd * h * 3 * h * itemsize + nd * 3 * h * 4 + t * nd * b * 4)
+    by_ops, by_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
+
+
+def cudnn_gru_bwd_ms(xg, w_h, b_h, iters):
+    """Backward of cuDNN nn.GRU(bidirectional) at full lengths with the
+    same recurrent weights: forward+backward minus forward, both timed.
+    A yardstick only: the port never calls it."""
+    import torch
+
+    t, nd, b, g3 = xg.shape
+    h = g3 // 3
+    gru = torch.nn.GRU(h, h, bidirectional=nd == 2).to(device=xg.device, dtype=xg.dtype)
+    with torch.no_grad():
+        for d in range(nd):
+            sfx = "_reverse" if d else ""
+            getattr(gru, "weight_hh_l0" + sfx).copy_(w_h[d].t())
+            getattr(gru, "bias_hh_l0" + sfx).copy_(b_h[d])
+    gru.flatten_parameters()
+    x = xg[:, 0, :, :h].contiguous().requires_grad_()
+    dy = torch.randn(t, b, nd * h, device=xg.device, dtype=xg.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            gru(x)
+
+    def fwd_bwd():
+        y, _ = gru(x)
+        y.backward(dy)
+
+    return time_ms(fwd_bwd, iters) - time_ms(fwd, iters)
+
+
+def phase_kernel_bwd():
+    """K1b against its plain loop, then the whole autograd function
+    (K1f + K1b) against plain forward + plain backward."""
+    import torch
+
+    from tpuasr_torch.ops.gru import (
+        BiGRUFunction,
+        bigru_backward,
+        bigru_backward_reference,
+        bigru_reference,
+    )
+
+    cuda = torch.device("cuda")
+    results = []
+    cases = [  # (name, T, B, H, D, dtype)
+        ("train-5s-bf16", 251, 32, 800, 2, torch.bfloat16),
+        ("small-f32", 33, 9, 64, 2, torch.float32),
+        ("T7-D1-f32", 7, 5, 800, 1, torch.float32),
+    ]
+    for i, (name, t, b, h, nd, dtype) in enumerate(cases):
+        xg, w_h, b_h, mask = gru_case(t, b, h, nd, dtype, seed=20 + i, device=cuda)
+        ys = bigru_reference(xg, w_h, b_h, mask)
+        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).contiguous()
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        dy = torch.randn(ys.shape, generator=gen, device=cuda).to(dtype)
+        packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)
+        torch.cuda.synchronize()
+        want = bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy).float()
+        scale = want.abs().max().item()
+        diff = (packed.float() - want).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        # the whole function: kernels vs plain versions
+        grads = []
+        for plain in (False, True):
+            leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
+            with plain_versions(plain):
+                (BiGRUFunction.apply(*leaves, mask).float() * dy.float()).sum().backward()
+            grads.append([a.grad for a in leaves])
+        fn_err = {k: rel_norm_err(a, b_) for k, a, b_ in zip(("dxg", "dw", "db"), *grads)}
+        row = {"case": name, "shape": [t, nd, b, h], "dtype": str(dtype).split(".")[1],
+               "max_abs_err": err, "mean_abs_err": mean, "packed_abs_max": scale,
+               "function_rel_norm_err": fn_err}
+        emit("kernel", kernel="bigru_bwd", **row)
+        if dtype == torch.float32:
+            check(err <= 1e-4 * scale, f"bigru_bwd {name} f32 {err} of {scale}")
+            check(max(fn_err.values()) <= 1e-4, f"BiGRUFunction {name} f32 {fn_err}")
+        else:
+            check(err <= 2e-2 * scale and mean <= 1e-3 * scale,
+                  f"bigru_bwd {name} bf16 {err} {mean} of {scale}")
+            check(max(fn_err.values()) <= 2e-2, f"BiGRUFunction {name} bf16 {fn_err}")
+        results.append(row)
+
+    timings = []
+    for t in (251, 826):
+        b, h, nd = 32, 800, 2
+        xg, w_h, b_h, mask = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda)
+        ys = bigru_reference(xg, w_h, b_h, mask)
+        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).contiguous()
+        dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
+        args = (xg, w_h, b_h, mask, h_prev, dy)
+        bound_ms, bound_by = bigru_bwd_bound(t, b, h, nd, 2)
+        timings.append({
+            "shape": [t, nd, b, h], "dtype": "bfloat16",
+            "ms": time_ms(lambda: bigru_backward(*args), iters=10, warmup=2),
+            "plain_ms": time_ms(lambda: bigru_backward_reference(*args), iters=2),
+            "library_ms": cudnn_gru_bwd_ms(xg, w_h, b_h, iters=10),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        emit("kernel_time", kernel="bigru_bwd", **timings[-1])
+    return results[0], timings
+
+
+def ctc_case(device, b=32, t=251, c=44, l_cap=130, seed=3):
+    """Logits (B, T, C) f32 and padded labels at the train path's 5 s
+    bucket shape (S = 2 * 130 + 1 = 261): ragged frames and labels, row
+    1 an empty label, row 2 infeasible (50 labels in 20 frames), row 3 a
+    padding row of 0 frames."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    logits = rng.standard_normal((b, t, c)).astype(np.float32) * 2.0
+    frames = rng.randint(t // 2, t + 1, size=b)
+    n_lab = rng.randint(5, 61, size=b)
+    frames[0], n_lab[0] = t, 60
+    n_lab[1] = 0
+    frames[2], n_lab[2] = 20, 50
+    frames[3] = 0
+    labels = np.zeros((b, l_cap), np.int64)
+    for j in range(b):
+        labels[j, :n_lab[j]] = rng.randint(1, c, size=n_lab[j])
+    return [torch.from_numpy(a).to(device) for a in (logits, frames, labels, n_lab)]
+
+
+def ctc_bounds(t, b, s):
+    cells = t * b * s
+    alpha_bytes = 4.0 * (2 * cells + 3 * b * s + t * b)  # emit, alphas; masks, alpha0; fv
+    beta_bytes = 4.0 * (3 * cells + 2 * b * s + t * b + b)  # emit_next, alphas, demit; ...
+    ops = 16.0 * cells  # 3 exp, 1 log, ~12 adds/max/compares per cell, f32
+    out = []
+    for nbytes in (alpha_bytes, beta_bytes):
+        by_ops, by_bytes = ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+        out.append((1e3 * max(by_ops, by_bytes), "operations" if by_ops > by_bytes else "bytes"))
+    return out
+
+
+def phase_kernel_ctc():
+    """K2a and K2b against their plain versions, through the loss and its
+    gradient; F.ctc_loss as a third opinion; then times."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpuasr_torch.ctc.loss import _emissions, _extended, ctc_loss
+    from tpuasr_torch.ops.ctc import (
+        LOG_EPS,
+        ctc_alpha,
+        ctc_alpha_reference,
+        ctc_beta,
+        ctc_beta_reference,
+    )
+
+    cuda = torch.device("cuda")
+    logits, frames, labels, n_lab = ctc_case(cuda)
+    b, t, c = logits.shape
+    s = 2 * labels.shape[1] + 1
+    feasible = (n_lab <= frames) & (frames > 0)
+    out = {}
+    for plain in (False, True):
+        lg = logits.clone().requires_grad_()
+        with plain_versions(plain):
+            loss = ctc_loss(lg, frames, labels, n_lab)
+            w = torch.where(feasible, 1.0 + torch.arange(b, device=cuda) / b, 0.0)
+            (loss * w).sum().backward()
+        out[plain] = (loss.detach(), lg.grad)
+    (loss_k, g_k), (loss_p, g_p) = out[False], out[True]
+    loss_rel = ((loss_k - loss_p).abs() / loss_p.abs().clamp(min=1.0))[feasible].max().item()
+    grad_err = (g_k - g_p).abs().max().item()
+    idx = feasible.nonzero()[:, 0]
+    lib = F.ctc_loss(torch.log_softmax(logits[idx], -1).transpose(0, 1), labels[idx],
+                     frames[idx], n_lab[idx], blank=0, reduction="none")
+    lib_rel = ((lib - loss_k[idx]).abs() / lib.abs().clamp(min=1.0)).max().item()
+    # the kernels' own outputs against the plain recursions
+    z, s_idx, valid_s, allow_skip = _extended(labels, n_lab, 0)
+    emit_ = _emissions(logits, z).contiguous()
+    skip = allow_skip.float().contiguous()
+    valid_f = valid_s.float().contiguous()
+    fv = (torch.arange(t, device=cuda)[:, None] < frames[None, :]).float().contiguous()
+    init = torch.full((b, s), LOG_EPS, device=cuda)
+    init[:, 0] = 0.0
+    init[:, 1] = torch.where(n_lab > 0, 0.0, LOG_EPS)
+    alpha0 = torch.clamp(init + emit_[0], min=LOG_EPS)
+    a_args = (emit_, skip, valid_f, fv, alpha0)
+    alphas = ctc_alpha(*a_args)
+    alphas_p = ctc_alpha_reference(*a_args)
+    live = alphas_p > LOG_EPS / 2
+    alpha_err = (alphas - alphas_p).abs()[live].max().item()
+    end = 2 * n_lab
+    end_mask = ((s_idx == end[:, None]) | ((s_idx == (end - 1).clamp(min=0)[:, None])
+                                           & (n_lab > 0)[:, None])).float()
+    logp = -loss_p
+    emit_next = torch.cat([emit_[1:], torch.full_like(emit_[:1], LOG_EPS)]).contiguous()
+    fv_next = torch.cat([fv[1:], torch.zeros_like(fv[:1])]).contiguous()
+    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], dim=1).contiguous()
+    beta_init = torch.where(end_mask > 0.5, 0.0, LOG_EPS).contiguous()
+    b_args = (emit_next, skip2, fv_next, beta_init, alphas_p, logp.contiguous())
+    demit_err = (ctc_beta(*b_args) - ctc_beta_reference(*b_args)).abs().max().item()
+    torch.cuda.synchronize()
+    row = {"case": "train-5s-f32", "shape": [t, b, s], "loss_rel_err": loss_rel,
+           "dlogits_max_abs_err": grad_err, "alphas_max_abs_err": alpha_err,
+           "demit_max_abs_err": demit_err, "f_ctc_loss_rel_err": lib_rel,
+           "rows": {"empty_label": 1, "infeasible": 2, "zero_frames": 3},
+           "infeasible_losses": loss_k[~feasible].tolist()}
+    emit("kernel", kernel="ctc", **row)
+    check(loss_rel <= 1e-5 and grad_err <= 2e-4, f"CTC kernels vs plain: {row}")
+    check(demit_err <= 2e-4, f"ctc_beta vs plain: {demit_err}")
+    check(lib_rel <= 1e-4, f"CTC vs F.ctc_loss on feasible rows: {lib_rel}")
+    check(bool((loss_k[~feasible] > 1e29).all()), "infeasible rows must give ~1e30")
+
+    (alpha_bound, alpha_by), (beta_bound, beta_by) = ctc_bounds(t, b, s)
+    log_probs = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    lp_grad = log_probs.clone().requires_grad_()
+    lib_frames = frames.clamp(min=1)  # the library call is given >= 1 frame a row
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.ctc_loss(log_probs, labels, lib_frames, n_lab, reduction="none")
+
+    def lib_fwd_bwd():
+        F.ctc_loss(lp_grad, labels, lib_frames, n_lab, reduction="none").sum().backward()
+
+    lib_fwd_ms = time_ms(lib_fwd, iters=20)
+    timing = {
+        "ctc_alpha": {"shape": [t, b, s], "ms": time_ms(lambda: ctc_alpha(*a_args), iters=20),
+                      "plain_ms": time_ms(lambda: ctc_alpha_reference(*a_args), iters=3),
+                      "library_ms": lib_fwd_ms, "bound_ms": alpha_bound, "bound_by": alpha_by},
+        "ctc_beta": {"shape": [t, b, s], "ms": time_ms(lambda: ctc_beta(*b_args), iters=20),
+                     "plain_ms": time_ms(lambda: ctc_beta_reference(*b_args), iters=3),
+                     "library_ms": time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms,
+                     "bound_ms": beta_bound, "bound_by": beta_by},
+    }
+    for k, v in timing.items():
+        emit("kernel_time", kernel=k, **v)
+    return row, timing
+
+
+# ------------------------------------------------------------------- train
+
+def read_jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
+                n_train: int = 64, n_val: int = 32, batch: int = 32):
+    """The training main path through tpuasr_torch.cli.train; ``device``
+    and ``width`` other than the defaults only rehearse it on the CPU."""
+    import shutil
+
+    import torch
+
+    import tpuasr_torch.ops.ctc as ctc_mod
+    import tpuasr_torch.ops.gru as gru_mod
+    from tpuasr_torch.cli import synth_corpus
+    from tpuasr_torch.cli import train as train_cli
+    from tpuasr_torch.serve import TranscriptionService
+
+    work = ROOT / "build" / "chip_smoke"
+    corpus, out = work / "corpus", work / "train"
+    shutil.rmtree(corpus, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    paths = synth_corpus.generate(str(corpus), n_train + n_val, 5.0,
+                                  n_val / (n_train + n_val), seed=0)
+    argv = ["--train-manifest", paths["train"], "--val-manifest", paths["val"],
+            "--hidden-size", width[0], "--hidden-layers", width[1],
+            "--batch-size", str(batch), "--epochs", "2", "--checkpoint",
+            "--save-folder", str(out), "--model-path", str(out / "best.ckpt"),
+            "--log-dir", str(out / "log"), "--sync-every", "1", "--device", device]
+    counters = (gru_mod.bigru_forward, gru_mod.bigru_backward,
+                ctc_mod.ctc_alpha, ctc_mod.ctc_beta)
+    for fn in counters:  # ---- the main path starts here
+        fn.launches = 0
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}  # ---- and ends here
+    sys.stdout.write(log.getvalue())
+    check(rc == 0, f"cli.train returned {rc}")
+    rows = read_jsonl(out / "log" / "metrics.jsonl")
+    steps = [r for r in rows if "train/loss" in r]
+    epochs = [r for r in rows if "epoch/loss" in r]
+    check(len(steps) == 2 * n_train // batch, f"{len(steps)} train steps logged")
+    for r in steps:
+        check(np.isfinite(r["train/loss"]) and np.isfinite(r["train/grad_norm"]),
+              f"non-finite step {r}")
+        check(r["train/n_ok"] == batch, f"n_ok {r['train/n_ok']} != {batch}")
+    if device == "cuda":
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel never launched on the training path: {launches}")
+    step_s = [r["train/step_time"] for r in steps]
+    ckpt = out / "best.ckpt"
+    check(ckpt.exists() and (out / "tpuasr_2.ckpt").exists(), "checkpoints not written")
+    svc = TranscriptionService(str(ckpt), device=device)
+    try:
+        wav = Path(paths["val"]).read_text().splitlines()[0].split(",")[0]
+        text, offsets = svc.transcribe_wav_bytes(Path(wav).read_bytes())
+    finally:
+        svc.close()
+    check(isinstance(text, str) and len(offsets) == len(text), "transcription of a WAV")
+    result = {
+        "device": name, "nvidia_smi": smi, "wall_s": wall_s, "steps": len(steps),
+        "batch": batch, "losses": [r["train/loss"] for r in steps],
+        "grad_norms": [r["train/grad_norm"] for r in steps],
+        "step_ms": [1e3 * x for x in step_s],
+        # the first step of each epoch includes cuDNN/cuBLAS first use
+        "step_ms_after_first": 1e3 * float(np.mean(step_s[1:])) if len(step_s) > 1 else None,
+        "utt_per_s_after_first": batch / float(np.mean(step_s[1:])) if len(step_s) > 1 else None,
+        "val_wer": [r["epoch/wer"] for r in epochs], "log": str((out / "log" / "metrics.jsonl").relative_to(ROOT)),
+        "launches": launches, "checkpoint": str(ckpt.relative_to(ROOT)),
+        "transcribed": {"wav": Path(wav).name, "text": text},
+    }
+    emit("train", **result)
+    return result, out, paths
+
+
+def train_step_parity(out, paths, device: str = "cuda") -> dict:
+    """One train step's loss and gradients through the kernels against
+    the plain versions on the card, same weights (the epoch-1
+    checkpoint) and the first training batch, before any update."""
+    import torch
+
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.step import batch_loss
+
+    pkg = load_checkpoint(str(out / "tpuasr_1.ckpt"))
+    plan = make_buckets(order_and_prune(read_manifest(paths["train"])), 32, BucketSpec())
+    batch = next(iter(AudioBatchLoader(plan, pkg.alphabet, transfer_dtype="int16").epoch(0)))
+    res = {}
+    for plain in (False, True):
+        model = model_from_variables(pkg.variables, pkg.model_config, torch.device(device),
+                                     trainable=True)
+        with plain_versions(plain):
+            loss, n_ok, _ = batch_loss(model, pkg.frontend_config, batch.waves,
+                                       batch.wave_lengths, batch.labels,
+                                       batch.label_lengths, batch.valid)
+            loss.backward()
+        res[plain] = (loss.item(), {k: p.grad for k, p in model.named_parameters()})
+    (loss_k, g_k), (loss_p, g_p) = res[False], res[True]
+    errs = {k: rel_norm_err(g_k[k], g_p[k]) for k in g_p}
+    worst = max(errs, key=errs.get)
+    row = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_norm_err_max": errs[worst], "worst_param": worst,
+           "grad_rel_norm_err_median": float(np.median(list(errs.values())))}
+    emit("train_parity", **row)
+    check(row["loss_rel_err"] <= 1e-2 and errs[worst] <= 5e-2,
+          f"train step, kernels vs plain: {row}")
+    return row
+
+
+def train_breakdown(out, paths, smi: str) -> dict:
+    """Where one full-width train step's device time goes: CUDA events
+    around the frontend, the conv blocks, the RNN layers' forward (K1f
+    inside), the CTC loss (K2a inside), the backward's K1b and K2b
+    calls, the rest of the BiGRU backward (dw and db einsums, packing),
+    the clip and the SGD step, and the whole step; ``rest`` is what no
+    span covers (the backward of the convs, projections, BatchNorms and
+    head, and the global norms). Means over 3 steps after a warm one."""
+    import torch
+
+    import tpuasr_torch.ops.ctc as ctc_mod
+    import tpuasr_torch.ops.gru as gru_mod
+    import tpuasr_torch.train.step as step_mod
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+
+    pkg = load_checkpoint(str(out / "tpuasr_1.ckpt"))
+    plan = make_buckets(order_and_prune(read_manifest(paths["train"])), 32, BucketSpec())
+    batch = next(iter(AudioBatchLoader(plan, pkg.alphabet, transfer_dtype="int16").epoch(0)))
+    model = model_from_variables(pkg.variables, pkg.model_config, torch.device("cuda"),
+                                 trainable=True)
+    step = step_mod.make_train_step(model, pkg.frontend_config, step_mod.TrainConfig())
+    spans = []
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            s = event()
+            r = fn(*a, **kw)
+            spans.append((name, s, event()))
+            return r
+        # a patched wrapper stands in for the module's name, which is
+        # where the kernel wrappers keep their launch counts
+        wrapper.launches = 0
+        return wrapper
+
+    bwd = gru_mod.BiGRUFunction.backward
+    patches = [
+        mock.patch.object(step_mod, "log_spectrogram", timed("frontend", step_mod.log_spectrogram)),
+        mock.patch.object(step_mod, "ctc_loss", timed("ctc_loss_forward", step_mod.ctc_loss)),
+        mock.patch.object(gru_mod, "bigru_forward", timed("k1f", gru_mod.bigru_forward)),
+        mock.patch.object(gru_mod, "bigru_backward", timed("k1b", gru_mod.bigru_backward)),
+        mock.patch.object(ctc_mod, "ctc_alpha", timed("k2a", ctc_mod.ctc_alpha)),
+        mock.patch.object(ctc_mod, "ctc_beta", timed("k2b", ctc_mod.ctc_beta)),
+        mock.patch.object(gru_mod.BiGRUFunction, "backward",
+                          staticmethod(timed("bigru_backward_fn", bwd))),
+        mock.patch.object(step_mod, "clip_by_global_norm_",
+                          timed("clip", step_mod.clip_by_global_norm_)),
+        mock.patch.object(step.optimizer, "step", timed("sgd_step", step.optimizer.step)),
+    ]
+    args = (batch.waves, batch.wave_lengths, batch.labels, batch.label_lengths, batch.valid, 3e-4)
+    step(*args)  # warm, before any span is recorded
+    hooks, starts = [], {}
+    for name, mods in (("conv", model.convs), ("rnn_forward", model.rnns)):
+        for m in mods:
+            hooks.append(m.register_forward_pre_hook(
+                lambda m, a: starts.__setitem__(id(m), event())))
+            hooks.append(m.register_forward_hook(
+                lambda m, a, o, name=name: spans.append((name, starts[id(m)], event()))))
+    for p in patches:
+        p.start()
+    try:
+        reps = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = event()
+        for _ in range(reps):
+            step(*args)
+        end = event()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        for p in patches:
+            p.stop()
+        for h in hooks:
+            h.remove()
+    ms: dict = {}
+    for name, s, e in spans:
+        ms[name] = ms.get(name, 0.0) + s.elapsed_time(e) / reps
+    total = start.elapsed_time(end) / reps
+    top = ("frontend", "conv", "rnn_forward", "ctc_loss_forward", "k2b",
+           "bigru_backward_fn", "clip", "sgd_step")  # disjoint spans
+    row = {"batch": list(batch.waves.shape), "step_device_ms": total, "step_host_ms": host_ms,
+           **{f"{k}_ms": v for k, v in sorted(ms.items())},
+           "rest_ms": total - sum(ms[k] for k in top),  # other backward work, norms
+           "bigru_backward_outside_k1b_ms": ms["bigru_backward_fn"] - ms["k1b"],
+           "rnn_forward_outside_k1f_ms": ms["rnn_forward"] - ms["k1f"],
+           "nvidia_smi": smi}
+    emit("train_breakdown", **row)
+    return row
 
 
 # ------------------------------------------------------------------- serve
@@ -395,6 +915,29 @@ def batch_breakdown(svc, arr, lens) -> dict:
     }
 
 
+def build_all(names) -> None:
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuasr_torch.ops import _build
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.build, names))  # raises with nvcc's output
+    for n in names:
+        info = _build.build_info[n]
+        emit("build", kernel=n, seconds=info["seconds"],
+             ptxas=[ln.strip() for ln in info["log"].splitlines()
+                    if "registers" in ln or "smem" in ln or "spill" in ln])
+
+
+def kernel_entry(name, source, replaces, launches, err, timing, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": timing["ms"],
+            "kernel_ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"], "shape": timing["shape"], **extra}
+
+
 def main() -> int:
     import torch
 
@@ -403,40 +946,47 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from tpuasr_torch.ops import _build
 
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
     emit("device", name=name, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
+    t_start = time.perf_counter()
+    build_all(["bigru_fwd", "bigru_bwd", "ctc"])
 
-    _build.build("bigru_fwd")
-    info = _build.build_info["bigru_fwd"]
-    emit("build", kernel="bigru_fwd", seconds=info["seconds"],
-         ptxas=[ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "smem" in ln or "spill" in ln])
+    k1f_row, k1f_timings = phase_kernel()
+    k1b_row, k1b_timings = phase_kernel_bwd()
+    ctc_row, ctc_timing = phase_kernel_ctc()
+    train_res, out, paths = phase_train(smi, name)
+    train_step_parity(out, paths)
+    train_breakdown(out, paths, smi)
+    serve_launches = phase_serve(smi, name)
+    emit("wall", seconds=time.perf_counter() - t_start)
 
-    check_row, timings = phase_kernel()
-    timing = timings[0]
-    launches = phase_serve(smi, name)
-
-    print(json.dumps({"kernels": [{
-        "name": "bigru_fwd",
-        "route": "cuda",
-        "source": "tpuasr_torch/ops/csrc/bigru_fwd.cu",
-        "replaces": "tpuasr/ops/gru.py:71 _fwd_kernel",
-        "launches": launches,
-        "max_abs_err": check_row["max_abs_err"],
-        "ms": timing["ms"],
-        "kernel_ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-        "shape": timing["shape"],
-        "timings": timings,
-        "card": smi,
-    }]}), flush=True)
+    train_launches = train_res["launches"]
+    card = {"card": smi}
+    print(json.dumps({"kernels": [
+        kernel_entry("bigru_fwd", "tpuasr_torch/ops/csrc/bigru_fwd.cu",
+                     "tpuasr/ops/gru.py:71 _fwd_kernel",
+                     serve_launches + train_launches["bigru_forward"],
+                     k1f_row["max_abs_err"], k1f_timings[0],
+                     launches_by_path={"serve": serve_launches,
+                                       "train": train_launches["bigru_forward"]},
+                     timings=k1f_timings, **card),
+        kernel_entry("bigru_bwd", "tpuasr_torch/ops/csrc/bigru_bwd.cu",
+                     "tpuasr/ops/gru.py:100 _bwd_kernel",
+                     train_launches["bigru_backward"], k1b_row["max_abs_err"],
+                     k1b_timings[0], timings=k1b_timings, **card),
+        kernel_entry("ctc_alpha", "tpuasr_torch/ops/csrc/ctc.cu",
+                     "tpuasr/ops/ctc.py:57 _alpha_kernel",
+                     train_launches["ctc_alpha"], ctc_row["alphas_max_abs_err"],
+                     ctc_timing["ctc_alpha"], loss_rel_err=ctc_row["loss_rel_err"], **card),
+        kernel_entry("ctc_beta", "tpuasr_torch/ops/csrc/ctc.cu",
+                     "tpuasr/ops/ctc.py:83 _beta_kernel",
+                     train_launches["ctc_beta"], ctc_row["demit_max_abs_err"],
+                     ctc_timing["ctc_beta"],
+                     dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], **card),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

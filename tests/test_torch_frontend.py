@@ -1,7 +1,23 @@
 """tpuasr_torch.audio.frontend vs tpuasr.audio.frontend on ragged
 batches: both framing paths, normalization on and off, int16 input.
-Tolerance 1e-5 relative (plus 1e-5 absolute near zero): both compute
-the DFT and the normalization sums in f32, in different orders."""
+
+Both packages are held to one float64 numpy oracle, element by element,
+within a bound derived from float32 rounding, and to each other within
+the sum of their bounds. A fixed 1e-5 tolerance is not safe here: the
+error of a bin is set by the 320- (or 400-) term f32 DFT sum, whose
+rounding scales with sum_n |x_n w_n| (about 40 for these frames) and not
+with the bin's own magnitude, so a near-zero bin's log1p can move by
+~1e-4 when a BLAS picks another blocking of the sum; the per-utterance
+normalization then divides by the utterance's std (0.4-0.55 here).
+Such a move touches a few elements only (3 of 19964 in the one run
+that showed it), so 99.9% of the elements must still agree to 1e-5.
+
+The bound is the probabilistic one for a dot product of n f32 terms,
+lam * sqrt(n) * u * sum |terms| (u = 2**-24, lam = 5; Higham and Mary,
+SIAM J. Sci. Comput. 2019), carried through log1p (derivative
+1 / (1 + |X|)) and the normalization (its mean and second moment are
+f32 sums over the N = frames * bins valid cells of the utterance).
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +30,9 @@ from tpuasr.train.step import _waves_to_float as jax_waves_to_float
 from tpuasr_torch.audio.frontend import FrontendConfig, log_spectrogram
 from tpuasr_torch.train.step import _waves_to_float
 
+U32 = 2.0 ** -24  # unit roundoff of float32
+LAM = 5.0
+
 
 def _batch(length, lengths, int16=False, seed=0):
     rng = np.random.RandomState(seed)
@@ -23,6 +42,47 @@ def _batch(length, lengths, int16=False, seed=0):
     if int16:
         waves = (waves * 32767).astype(np.int16)
     return waves, np.asarray(lengths, np.int32)
+
+
+def _oracle(waves, lengths, cfg):
+    """float64 features and each element's f32 rounding bound."""
+    x = waves.astype(np.float64)
+    if waves.dtype == np.int16:
+        x = x / 32768.0
+    n_fft, hop, nf = cfg.n_fft, cfg.hop, cfg.n_features
+    b, l = x.shape
+    t_max = 1 + l // hop
+    # librosa center=True framing, reflecting at 0 and at each length - 1
+    pos = np.abs(np.arange(t_max)[:, None] * hop + np.arange(n_fft) - n_fft // 2)
+    right = np.maximum(lengths - 1, 0)[:, None, None]
+    pos = np.clip(np.where(pos > right, 2 * right - pos, pos), 0, l - 1)
+    n = np.arange(n_fft)
+    win = 0.54 - 0.46 * np.cos(2 * np.pi * n / n_fft)  # periodic hamming
+    frames = np.take_along_axis(x[:, None, :], pos, axis=-1) * win
+    ang = 2 * np.pi * n[:, None] * np.arange(nf)[None, :] / n_fft
+    cos, sin = np.cos(ang), np.sin(ang)
+    re, im = frames @ cos, frames @ sin
+    mag = np.sqrt(re * re + im * im + 1e-30)  # as both packages define it
+    feats = np.log1p(mag)
+    # DFT rounding, through log1p
+    dft_err = LAM * np.sqrt(n_fft) * U32 * (np.abs(frames) @ (np.abs(cos) + np.abs(sin)))
+    err = dft_err / (1.0 + mag) + 4 * U32 * feats
+    feat_lengths = 1 + lengths // hop
+    mask = (np.arange(t_max)[None, :] < feat_lengths[:, None])[:, :, None]
+    if cfg.normalize:
+        cells = np.maximum(feat_lengths * nf, 1)[:, None, None]
+        mean = (feats * mask).sum((1, 2), keepdims=True) / cells
+        sq = (feats * feats * mask).sum((1, 2), keepdims=True) / cells
+        std = np.sqrt(np.maximum(sq - mean * mean, 1e-10))
+        y = (feats - mean) / std
+        # the f32 sums of the mean and of the second moment
+        sum_err = LAM * np.sqrt(cells) * U32
+        d_mean = sum_err * mean + (err * mask).sum((1, 2), keepdims=True) / cells
+        d_var = sum_err * sq + 2 * mean * d_mean + 2 * (np.abs(feats) * err * mask).sum(
+            (1, 2), keepdims=True) / cells
+        err = (err + d_mean + np.abs(y) * d_var / (2 * std)) / std + 4 * U32 * np.abs(y)
+        feats = y
+    return feats * mask, err * mask, feat_lengths
 
 
 @pytest.mark.parametrize("length,window_size,normalize,int16", [
@@ -41,9 +101,18 @@ def test_log_spectrogram_matches_jax(length, window_size, normalize, int16):
                                    jnp.asarray(lengths), JaxFrontendConfig(**kw))
     f_t, l_t = log_spectrogram(_waves_to_float(torch.from_numpy(waves)),
                                torch.from_numpy(lengths), FrontendConfig(**kw))
+    want, bound, want_lengths = _oracle(waves, lengths, FrontendConfig(**kw))
     np.testing.assert_array_equal(l_t.numpy(), np.asarray(l_j))
-    assert f_t.dtype == torch.float32 and f_t.shape == f_j.shape
-    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(l_t.numpy(), want_lengths)
+    assert f_t.dtype == torch.float32 and f_t.shape == f_j.shape == want.shape
+    f_t, f_j = f_t.numpy().astype(np.float64), np.asarray(f_j, np.float64)
+    for name, got in (("port", f_t), ("jax", f_j)):
+        excess = np.abs(got - want) - bound
+        assert excess.max() <= 0, (name, np.unravel_index(excess.argmax(), excess.shape))
+    assert (np.abs(f_t - f_j) <= 2 * bound).all()
+    # the bound is worst-case-like; another blocking of the DFT sum moves
+    # only a few ill-conditioned elements, so 99.9% stay within 1e-5
+    assert np.quantile(np.abs(f_t - f_j), 0.999) <= 1e-5
 
 
 def test_config_dict_round_trips_with_jax():

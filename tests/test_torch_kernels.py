@@ -8,6 +8,18 @@ Tolerances (BiGRU forward): f32 max-abs 1e-4, the same f32 products
 summed in another order; bf16 max-abs 3e-2 and mean-abs 1e-3, because
 the carried h is rounded to bf16 every step and an ulp moved by the
 summation order is carried on.
+
+BiGRU backward (packed gate gradients): f32 max-abs 1e-4 relative to
+the largest |packed| (the f32 carry sums the same products in another
+order); bf16 max-abs 2e-2 and mean-abs 1e-3 relative to it (packed is
+rounded to bf16, 2**-8 relative, and a moved rounding of a recomputed
+gate can flip one bf16 ulp of the output).
+
+CTC alpha and beta: alphas within rel 1e-5 of the plain recursion on
+frames where they are finite, dL/demit within 2e-4 absolute
+(tests/test_pallas_ctc.py's loss and gradient tolerances); both sum the
+same three exponentials in the same order, so the difference is the
+exp/log implementations' last bits.
 """
 
 import os
@@ -19,7 +31,21 @@ import torch
 
 from torch_helpers import cuda, gru_inputs  # noqa: F401 (fixture)
 from tpuasr_torch.ops import _build
-from tpuasr_torch.ops.gru import bigru_forward, bigru_reference
+from tpuasr_torch.ops.ctc import (
+    LOG_EPS,
+    CTCFromEmit,
+    ctc_alpha,
+    ctc_alpha_reference,
+    ctc_beta,
+    ctc_beta_reference,
+)
+from tpuasr_torch.ops.gru import (
+    BiGRUFunction,
+    bigru_backward,
+    bigru_backward_reference,
+    bigru_forward,
+    bigru_reference,
+)
 
 CASES = [  # (T, B, H, D)
     pytest.param(10, 4, 16, 2, id="bidir"),
@@ -83,3 +109,130 @@ def test_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
         bigru_forward(xg, w_h, b_h, mask[:, :, :2])
     with pytest.raises(ValueError):
         bigru_forward(xg, w_h, b_h, mask.cpu())
+
+
+def _bwd_args(device, t, b, h, nd, dtype, seed=12):
+    xg, w_h, b_h, mask = _args(device, t, b, h, nd, dtype, seed)
+    ys = bigru_reference(xg, w_h, b_h, mask)
+    h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).contiguous()
+    rng = np.random.RandomState(seed + 1)
+    dy = torch.from_numpy(rng.randn(t, nd, b, h).astype(np.float32)).to(device, dtype)
+    return xg, w_h, b_h, mask, h_prev, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h,nd", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernel_matches_reference(t, b, h, nd, dtype, cuda):  # noqa: F811
+    args = _bwd_args(cuda, t, b, h, nd, dtype)
+    before = bigru_backward.launches
+    packed = bigru_backward(*args)
+    torch.cuda.synchronize()
+    assert bigru_backward.launches == before + 2 * t
+    assert packed.shape == (t, nd, b, 4 * h) and packed.dtype == dtype
+    want = bigru_backward_reference(*args).float()
+    scale = want.abs().max().item()
+    diff = (packed.float() - want).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4 * scale
+    else:
+        assert diff.max().item() <= 2e-2 * scale and diff.mean().item() <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+def test_bigru_function_gradients_match_plain_autograd(cuda):  # noqa: F811
+    xg, w_h, b_h, mask = _args(cuda, 9, 5, 32, 2, torch.float32)
+    rng = np.random.RandomState(4)
+    dy = torch.from_numpy(rng.randn(9, 2, 5, 32).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (BiGRUFunction.apply, bigru_reference):
+        leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
+        (fn(*leaves, mask) * dy).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for g_k, g_r in zip(*grads):
+        assert (g_k - g_r).abs().max().item() <= 3e-4
+
+
+def _ctc_case(device, t, b, s, seed=7):
+    """Log-emissions with ragged frame counts (one row padded to 0
+    frames) and ragged label lengths (one empty, one longer than its
+    frames)."""
+    rng = np.random.RandomState(seed)
+    emit = np.log(rng.dirichlet(np.ones(8), size=(t, b, s)).max(-1)).astype(np.float32)
+    frames = rng.randint(1, t + 1, size=b)
+    frames[0], frames[1] = t, 0
+    n_lab = rng.randint(0, (s - 1) // 2 + 1, size=b)
+    n_lab[0], n_lab[2], n_lab[3] = (s - 1) // 2, 0, min((s - 1) // 2, t + 5)
+    frames[3] = max(1, n_lab[3] - 3)  # infeasible: more labels than frames
+    s_idx = np.arange(s)[None, :]
+    valid_s = (s_idx < 2 * n_lab[:, None] + 1).astype(np.float32)
+    skip = ((s_idx % 2 == 1) & (s_idx >= 2) & (rng.rand(b, s) < 0.7)).astype(np.float32)
+    fv = (np.arange(t)[:, None] < frames[None, :]).astype(np.float32)
+    init = np.full((b, s), LOG_EPS, np.float32)
+    init[:, 0] = 0.0
+    init[:, 1] = np.where(n_lab > 0, 0.0, LOG_EPS)
+    end = 2 * n_lab
+    end_mask = ((s_idx == end[:, None])
+                | ((s_idx == np.maximum(end - 1, 0)[:, None]) & (n_lab > 0)[:, None]))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.float32)
+            for a in (emit, init, skip, valid_s, fv, end_mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,s", [(11, 5, 9), (40, 6, 61), (251, 32, 261), (3, 4, 1201)],
+                         ids=["tiny", "small", "train-5s", "S1201"])
+def test_ctc_kernels_match_reference(t, b, s, cuda):  # noqa: F811
+    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, t, b, s)
+    alpha0 = torch.clamp(init + emit[0], min=LOG_EPS)
+    before = ctc_alpha.launches, ctc_beta.launches
+    alphas = ctc_alpha(emit, skip, valid_s, fv, alpha0)
+    want = ctc_alpha_reference(emit, skip, valid_s, fv, alpha0)
+    torch.cuda.synchronize()
+    live = want > LOG_EPS / 2
+    assert torch.equal(alphas > LOG_EPS / 2, live)
+    rel = ((alphas - want).abs() / want.abs().clamp(min=1.0))[live]
+    assert rel.max().item() <= 1e-5
+    logp = torch.logsumexp(torch.where(end_mask > 0.5, alphas[-1], LOG_EPS), dim=1)
+    emit_next = torch.cat([emit[1:], torch.full_like(emit[:1], LOG_EPS)]).contiguous()
+    fv_next = torch.cat([fv[1:], torch.zeros_like(fv[:1])]).contiguous()
+    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], dim=1).contiguous()
+    beta_init = torch.where(end_mask > 0.5, 0.0, LOG_EPS).contiguous()
+    demit = ctc_beta(emit_next, skip2, fv_next, beta_init, alphas, logp)
+    want_d = ctc_beta_reference(emit_next, skip2, fv_next, beta_init, alphas, logp)
+    torch.cuda.synchronize()
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
+    assert (demit - want_d).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_ctc_function_gradient_matches_plain(cuda):  # noqa: F811
+    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, 30, 6, 21)
+    e_k = emit.clone().requires_grad_()
+    loss_k = CTCFromEmit.apply(e_k, init, skip, valid_s, fv, end_mask)
+    w = torch.linspace(0.5, 2.0, loss_k.shape[0], device=cuda)
+    (loss_k * w).sum().backward()
+    import tpuasr_torch.ops.ctc as ctc_mod
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ctc_mod, "ctc_alpha", ctc_alpha_reference)
+        mp.setattr(ctc_mod, "ctc_beta", ctc_beta_reference)
+        e_r = emit.clone().requires_grad_()
+        loss_r = CTCFromEmit.apply(e_r, init, skip, valid_s, fv, end_mask)
+        (loss_r * w).sum().backward()
+    assert ((loss_k - loss_r).abs() / loss_r.abs().clamp(min=1.0)).max().item() <= 1e-5
+    assert (e_k.grad - e_r.grad).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
+    xg, w_h, b_h, mask, h_prev, dy = _bwd_args(cuda, 5, 3, 8, 2, torch.bfloat16)
+    with pytest.raises(TypeError):
+        bigru_backward(xg, w_h, b_h, mask, h_prev, dy.float())
+    with pytest.raises(ValueError):
+        bigru_backward(xg, w_h, b_h, mask, h_prev[:4], dy)
+    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, 6, 4, 9)
+    with pytest.raises(TypeError):
+        ctc_alpha(emit.double(), skip, valid_s, fv, init)
+    with pytest.raises(ValueError, match="contiguous"):
+        ctc_alpha(emit.transpose(0, 1).contiguous().transpose(0, 1), skip, valid_s, fv, init)
+    with pytest.raises(ValueError):
+        ctc_beta(emit, skip, fv, init, emit, init[:, 0].cpu())

@@ -1,15 +1,66 @@
-"""Shared CLI flags (port of ``tpuasr/cli/opts.py``): the decoder and
-runtime flags of the serving and transcription entry points, plus
-``--device``. Only the greedy decoder is ported; the others parse and
-then raise."""
+"""Shared CLI flags (port of ``tpuasr/cli/opts.py``): audio, model,
+decoder and runtime flags, plus ``--device``. Only the greedy decoder
+is ported; the others parse and then raise."""
 
 from __future__ import annotations
 
 import argparse
 
+from tpuasr_torch.audio.frontend import FrontendConfig
 from tpuasr_torch.decode.greedy import GreedyDecoder
 from tpuasr_torch.device import DEVICES
-from tpuasr_torch.labels import Alphabet
+from tpuasr_torch.labels import Alphabet, load_labels
+from tpuasr_torch.model.ds2 import ModelConfig
+
+
+def add_audio_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--window-size", type=float, default=0.02,
+                   help="window size in seconds")
+    p.add_argument("--window-stride", type=float, default=0.01,
+                   help="window stride in seconds")
+    p.add_argument("--window", default="hamming",
+                   choices=["hamming", "hann", "blackman", "bartlett", "rect"])
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--hidden-size", type=int, default=800)
+    p.add_argument("--hidden-layers", type=int, default=5)
+    p.add_argument("--rnn-type", default="gru", choices=["gru", "lstm", "rnn"])
+    p.add_argument("--no-bidirectional", dest="bidirectional",
+                   action="store_false", default=True)
+    p.add_argument("--lookahead-context", type=int, default=20,
+                   help="unidirectional models only: Lookahead layer context frames")
+    p.add_argument("--labels-path", default=None,
+                   help="JSON list of characters; default PT-BR alphabet")
+    p.add_argument("--compute-dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--rnn-impl", default="scan", choices=["scan", "pallas", "pallas2"],
+                   help="kept in the checkpoint; the port runs one BiGRU "
+                   "kernel for every choice")
+    p.add_argument("--bn-mask-mode", default="masked",
+                   choices=["masked", "reference"],
+                   help="masked: BN stats/RNN carries see true lengths "
+                   "only (default); reference: padding-inclusive "
+                   "reference-family semantics")
+
+
+def frontend_config_from(args) -> FrontendConfig:
+    return FrontendConfig(sample_rate=args.sample_rate, window_size=args.window_size,
+                          window_stride=args.window_stride, window=args.window)
+
+
+def model_config_from(args, alphabet: Alphabet, n_features: int) -> ModelConfig:
+    return ModelConfig(
+        n_classes=alphabet.size, n_features=n_features,
+        hidden_size=args.hidden_size, hidden_layers=args.hidden_layers,
+        rnn_type=args.rnn_type, bidirectional=args.bidirectional,
+        compute_dtype=args.compute_dtype, rnn_impl=args.rnn_impl,
+        bn_mask_mode=args.bn_mask_mode, lookahead_context=args.lookahead_context)
+
+
+def alphabet_from(args) -> Alphabet:
+    return load_labels(args.labels_path)
 
 
 def add_decoder_args(p: argparse.ArgumentParser) -> None:
@@ -29,6 +80,12 @@ def add_decoder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device-lm-level", default="word", choices=["word", "char"])
 
 
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", choices=list(DEVICES),
+                   help="run on the GPU (default; fails without one) or "
+                   "on the CPU")
+
+
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
     """Runtime (non-weight) choices: where to run, and the checkpoint's
     RNN implementation, which the port accepts and runs with its one
@@ -37,9 +94,7 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                    choices=["scan", "pallas", "pallas2"],
                    help="accepted for compatibility; the port runs one "
                    "BiGRU kernel for every choice")
-    p.add_argument("--device", default="cuda", choices=list(DEVICES),
-                   help="run on the GPU (default; fails without one) or "
-                   "on the CPU")
+    add_device_arg(p)
 
 
 def build_decoder(args, alphabet: Alphabet):

@@ -1,14 +1,20 @@
-"""Static duration buckets (the ``BucketSpec`` of ``tpuasr/data/buckets.py``).
+"""Static duration buckets and the SortaGrad batch schedule (port of
+``tpuasr/data/buckets.py``).
 
-Serving pads every batch up to a bucket of this ladder, so the port sees
-the same small set of shapes as the JAX package. The bucketing sampler
-comes with the training slice.
+Every batch is padded up to a bucket of this ladder (samples and label
+slots), so the port sees the same small set of shapes as the JAX
+package. Epoch 0 runs in duration-sorted order (SortaGrad); later
+epochs shuffle within each bucket and then the batch order, from a
+numpy ``RandomState(seed + epoch)`` used exactly as the JAX package
+uses it, so both packages train on the same batches in the same order.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import numpy as np
 
 # Default bucket boundaries in seconds: dense where PT-BR read-speech
 # utterances live (2-8 s), sparse tails.
@@ -42,3 +48,59 @@ class BucketSpec:
     @property
     def n_buckets(self) -> int:
         return len(self.seconds)
+
+
+@dataclass
+class BatchPlanEntry:
+    bucket: int
+    indices: list  # indices into the manifest entry list
+
+
+@dataclass
+class BucketingPlan:
+    """An epoch-indexed batch schedule over duration-annotated manifest
+    entries: ``batches(epoch)`` lists BatchPlanEntry in training order."""
+
+    entries: list
+    batch_size: int
+    spec: BucketSpec = field(default_factory=BucketSpec)
+    seed: int = 0
+    sorta_grad: bool = True
+    shuffle: bool = True
+
+    def __post_init__(self):
+        self._durations = np.array([e.duration for e in self.entries], dtype=np.float64)
+        self._order = np.argsort(self._durations, kind="stable")
+        self._bucket_ids = np.array(
+            [self.spec.bucket_of(d) for d in self._durations], dtype=np.int64)
+
+    def _chunks(self, members, bucket=None) -> list[BatchPlanEntry]:
+        """Consecutive batches of ``members``, in the given bucket or in
+        the largest bucket of the batch's members."""
+        out = []
+        for start in range(0, len(members), self.batch_size):
+            idx = members[start:start + self.batch_size]
+            b = int(self._bucket_ids[idx].max()) if bucket is None else bucket
+            out.append(BatchPlanEntry(b, list(map(int, idx))))
+        return out
+
+    def _bucketed_batches(self, rng: np.random.RandomState) -> list[BatchPlanEntry]:
+        out = []
+        for b in range(self.spec.n_buckets):
+            members = np.nonzero(self._bucket_ids == b)[0]
+            if len(members) == 0:
+                continue
+            rng.shuffle(members)
+            out += self._chunks(members, b)
+        rng.shuffle(out)
+        return out
+
+    def batches(self, epoch: int) -> list[BatchPlanEntry]:
+        if (epoch == 0 and self.sorta_grad) or not self.shuffle:
+            return self._chunks(self._order)
+        return self._bucketed_batches(np.random.RandomState(self.seed + epoch))
+
+
+def make_buckets(entries: list, batch_size: int, spec: BucketSpec | None = None,
+                 **kw) -> BucketingPlan:
+    return BucketingPlan(entries, batch_size, spec or BucketSpec(), **kw)

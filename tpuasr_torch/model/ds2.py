@@ -2,10 +2,13 @@
 
 Two masked conv + BatchNorm + HardTanh blocks, bidirectional GRU
 layers with the directions summed and a BatchNorm before every layer
-but the first, then a BatchNorm + Linear head; eval mode (running
-statistics). Numerics follow the JAX package's ``rnn_impl="pallas"``
+but the first, then a BatchNorm + Linear head. ``forward(..., train)``
+selects BatchNorm's mode: batch statistics over valid positions (and
+an update of the running statistics) in training, running statistics
+in evaluation. Numerics follow the JAX package's ``rnn_impl="pallas"``
 path: activations in ``compute_dtype`` with f32 parameters and f32
-BatchNorm math, the GRU time loop in ``tpuasr_torch.ops.gru``.
+BatchNorm math, the GRU time loop in ``tpuasr_torch.ops.gru`` (through
+its autograd function whenever grad is enabled).
 
 Layout notes. Activations keep the JAX package's (B, T, F, C) order at
 module boundaries: the convs run in PyTorch's (B, C, T, F) and are
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuasr_torch.ops.gru import bigru_forward
+from tpuasr_torch.ops.gru import BiGRUFunction, bigru_forward
 
 # (kernel_t, kernel_f, stride_t, stride_f, pad_t, pad_f) per conv layer.
 CONV_SPECS = (
@@ -32,6 +35,7 @@ CONV_SPECS = (
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
 
 @dataclass(frozen=True)
@@ -116,8 +120,13 @@ def _unsupported(cfg: ModelConfig) -> None:
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid positions, eval mode: running statistics,
-    f32 math, output masked and cast back to the input dtype."""
+    """BatchNorm over valid positions of (B, T, ..., C), f32 math, output
+    masked and cast back to the input dtype.
+
+    Training: the mean and the biased variance over the valid positions
+    (denominator max(count, 1); a padding row of length 0 adds nothing),
+    and the running statistics move by momentum 0.1 (torch convention)
+    with the unbiased variance. Evaluation: the running statistics."""
 
     def __init__(self, c: int, epsilon: float = 1e-5):
         super().__init__()
@@ -127,10 +136,24 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         m = mask.to(torch.float32).reshape(
             mask.shape + (1,) * (x.dim() - mask.dim()))
-        y = (x.to(torch.float32) - self.mean) * torch.rsqrt(self.var + self.epsilon)
+        xf = x.to(torch.float32)
+        if train:
+            denom = m.expand(x.shape[:-1] + (1,)).sum().clamp(min=1.0)
+            axes = tuple(range(x.dim() - 1))
+            mean = (xf * m).sum(dim=axes) / denom
+            var = ((xf - mean) ** 2 * m).sum(dim=axes) / denom
+            with torch.no_grad():
+                unbiased = var * (denom / (denom - 1.0).clamp(min=1.0))
+                mo = BN_MOMENTUM
+                self.mean.copy_((1 - mo) * self.mean + mo * mean)
+                self.var.copy_((1 - mo) * self.var + mo * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.scale + self.bias
         return (y * m).to(x.dtype)
 
@@ -146,7 +169,7 @@ class MaskedConvBlock(nn.Module):
         self.weight = nn.Parameter(torch.zeros(channels, in_channels, kt, kf))
         self.bn = MaskedBatchNorm(channels)
 
-    def forward(self, x, lengths, mask_lengths=None):
+    def forward(self, x, lengths, mask_lengths=None, train: bool = False):
         """``mask_lengths`` overrides the lengths used for masking only
         (bn_mask_mode="reference"); ``lengths`` drives the returned
         length propagation."""
@@ -158,13 +181,14 @@ class MaskedConvBlock(nn.Module):
         ml = out_lengths if mask_lengths is None else (
             (mask_lengths + 2 * pt - kt) // st + 1)
         mask = _time_mask(ml, x.shape[1])
-        x = self.bn(x, mask).clamp(0.0, 20.0)  # HardTanh(0, 20)
+        x = self.bn(x, mask, train).clamp(0.0, 20.0)  # HardTanh(0, 20)
         return x * mask[:, :, None, None].to(x.dtype), out_lengths
 
 
 class BiRecurrentCore(nn.Module):
-    """Both GRU directions in one fused time loop (``bigru_forward``);
-    direction 1 consumes the time-flipped input."""
+    """Both GRU directions in one fused time loop (``bigru_forward``, or
+    ``BiGRUFunction`` when grad is enabled); direction 1 consumes the
+    time-flipped input."""
 
     def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype):
         super().__init__()
@@ -181,7 +205,8 @@ class BiRecurrentCore(nn.Module):
         xg = (torch.einsum("dbti,dig->tdbg", xs, self.input_kernel.to(dt))
               + self.input_bias.to(dt)[None, :, None, :])  # (T, 2, B, 3H)
         mask = torch.stack([mask_fwd, mask_bwd], dim=0)  # (2, B, T)
-        ys = bigru_forward(
+        gru = BiGRUFunction.apply if torch.is_grad_enabled() else bigru_forward
+        ys = gru(
             xg.contiguous(), self.recurrent_kernel.to(dt).contiguous(),
             self.recurrent_bias.to(torch.float32).contiguous(),
             mask.permute(2, 0, 1).to(torch.float32).contiguous(),
@@ -200,10 +225,10 @@ class BatchRNN(nn.Module):
         self.bn = MaskedBatchNorm(h_in) if batch_norm else None
         self.bi = BiRecurrentCore(h_in, hidden, compute_dtype)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, train: bool = False):
         mask = _time_mask(lengths, x.shape[1])
         if self.bn is not None:
-            x = self.bn(x, mask)
+            x = self.bn(x, mask, train)
         t_max = x.shape[1]
         mask_bwd = (torch.arange(t_max, device=x.device)[None, :]
                     >= (t_max - lengths)[:, None])
@@ -214,7 +239,7 @@ class BatchRNN(nn.Module):
 
 class DeepSpeech2(nn.Module):
     """(B, T, F) log-spectrograms + frame lengths -> (B, T', n_classes)
-    f32 logits + output lengths, eval mode."""
+    f32 logits + output lengths; ``train`` selects BatchNorm's mode."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -233,7 +258,8 @@ class DeepSpeech2(nn.Module):
         self.head_bn = MaskedBatchNorm(cfg.hidden_size)
         self.head_kernel = nn.Parameter(torch.zeros(cfg.hidden_size, cfg.n_classes))
 
-    def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False):
         cfg = self.config
         dt = cfg.torch_compute_dtype
         lengths = lengths.to(device=feats.device, dtype=torch.int64)
@@ -246,15 +272,15 @@ class DeepSpeech2(nn.Module):
         out_lengths = lengths
         for conv in self.convs:
             kt, _, st, _, pt, _ = conv.spec
-            x, out_lengths = conv(x, out_lengths, mask_lengths=ml)
+            x, out_lengths = conv(x, out_lengths, mask_lengths=ml, train=train)
             if ml is not None:
                 ml = (ml + 2 * pt - kt) // st + 1
         b, t, f, c = x.shape
         x = x.reshape(b, t, f * c)
         rnn_lengths = out_lengths if ml is None else ml
         for rnn in self.rnns:
-            x = rnn(x, rnn_lengths)
+            x = rnn(x, rnn_lengths, train)
         mask = _time_mask(rnn_lengths, x.shape[1])
-        x = self.head_bn(x, mask)
+        x = self.head_bn(x, mask, train)
         logits = torch.matmul(x, self.head_kernel.to(dt)).to(torch.float32)
         return logits * mask[:, :, None], out_lengths

@@ -5,9 +5,17 @@
 ``tpuasr/ops/gru.py:_fwd_kernel``. ``bigru_reference`` is its plain
 PyTorch version with the same numerics: the recurrent product and
 ``b_h`` in f32, gate math in f32, the carried h rounded to xg's dtype
-every step, masked frames carrying h through. The wrapper uses the
-plain version only for CPU tensors; on a CUDA tensor it launches the
-kernel or raises.
+every step, masked frames carrying h through.
+
+``bigru_backward`` wraps ``csrc/bigru_bwd.cu``, which replaces
+``tpuasr/ops/gru.py:_bwd_kernel``: the reverse-time gate gradients,
+packed ``[dr_pre, dz_pre, dn_pre, dhn]`` (4H) in xg's dtype, with an
+f32 carried dh. ``bigru_backward_reference`` is its plain version.
+``BiGRUFunction`` is the autograd function around both, forming dxg,
+dw and db from the packed gradients as ``_bigru_bwd`` does.
+
+The wrappers use the plain versions only for CPU tensors; on a CUDA
+tensor they launch the kernel or raise.
 
 The input projections ``xg`` are computed outside, as in the JAX
 package. Direction 1 is the TIME-FLIPPED sequence (the model passes
@@ -59,6 +67,53 @@ def bigru_reference(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     return ys
 
 
+def bigru_backward_reference(xg: torch.Tensor, w_h: torch.Tensor,
+                             b_h: torch.Tensor, mask: torch.Tensor,
+                             h_prev: torch.Tensor,
+                             dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch reverse-time loop with ``_bwd_kernel``'s numerics.
+
+    Args as ``bigru_reference``, plus h_prev (T, D, B, H): the forward's
+    ys shifted one step later (h_0 = 0), and dy (T, D, B, H): the
+    gradient of ys, both in xg's dtype. The kernel recomputes the gates
+    from h_prev (products and b_h in f32), carries dL/dh in f32, keeps
+    dhg = [dr_pre, dz_pre, dhn] in f32 for the product with w_h^T, and
+    passes dh through masked frames.
+    Returns packed (T, D, B, 4H) = [dr_pre, dz_pre, dn_pre, dhn] * m,
+    rounded to xg's dtype.
+    """
+    dt = xg.dtype
+    t_len, nd, b, g3 = xg.shape
+    h_dim = g3 // 3
+    w = w_h.to(dt).to(torch.float32)
+    w_t = w.transpose(1, 2)
+    bh = b_h.to(torch.float32)[:, None, :]
+    dh_c = torch.zeros((nd, b, h_dim), dtype=torch.float32, device=xg.device)
+    packed = xg.new_empty((t_len, nd, b, 4 * h_dim))
+    for t in reversed(range(t_len)):
+        hp = h_prev[t].to(torch.float32)
+        xr, xz, xn = xg[t].to(torch.float32).split(h_dim, dim=-1)
+        hr, hz, hn = (torch.bmm(hp, w) + bh).split(h_dim, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dh_c + dy[t].to(torch.float32)
+        m = mask[t].to(torch.float32)[:, :, None]
+        dn = dh * (1.0 - z)
+        dz = dh * (hp - n)
+        dh_direct = dh * z
+        dn_pre = dn * (1.0 - n * n)
+        dr = dn_pre * hn
+        dhn = dn_pre * r
+        dz_pre = dz * z * (1.0 - z)
+        dr_pre = dr * r * (1.0 - r)
+        dhg = torch.cat([dr_pre, dz_pre, dhn], dim=-1) * m
+        dh_prev = torch.bmm(dhg, w_t) + dh_direct * m
+        dh_c = m * dh_prev + (1.0 - m) * dh
+        packed[t] = (torch.cat([dr_pre, dz_pre, dn_pre, dhn], dim=-1) * m).to(dt)
+    return packed
+
+
 def _check(xg, w_h, b_h, mask):
     if xg.dim() != 4:
         raise ValueError(f"xg must be (T, D, B, 3H), got {tuple(xg.shape)}")
@@ -84,15 +139,25 @@ def _check(xg, w_h, b_h, mask):
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel's library (built on first use) with its C signatures."""
-    lib = _build.load("bigru_fwd")
+def _lib(name: str = "bigru_fwd") -> ctypes.CDLL:
+    """A kernel's library (built on first use) with its C signatures."""
+    lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpuasr_bigru_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.tpuasr_bigru_fwd.restype = ctypes.c_int
+    if name == "bigru_fwd":
+        lib.tpuasr_bigru_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.tpuasr_bigru_fwd.restype = ctypes.c_int
+    else:
+        lib.tpuasr_bigru_bwd.argtypes = [p] * 10 + [i] * 5 + [p]
+        lib.tpuasr_bigru_bwd.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.tpuasr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
 def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
@@ -120,11 +185,88 @@ def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
         err = lib.tpuasr_bigru_fwd(
             xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
             ys.data_ptr(), t_len, nd, b, h, _DTYPE_CODE[xg.dtype], stream)
-    if err != 0:
-        msg = lib.tpuasr_cuda_error_string(err).decode()
-        raise RuntimeError(f"bigru_fwd kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err, "bigru_fwd")
     bigru_forward.launches += t_len
     return ys
 
 
 bigru_forward.launches = 0
+
+
+def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+                   mask: torch.Tensor, h_prev: torch.Tensor,
+                   dy: torch.Tensor) -> torch.Tensor:
+    """Reverse-time GRU gate gradients: -> packed (T, D, B, 4H).
+
+    CUDA tensors run the Hopper kernel (two launches per time step, each
+    counted in ``bigru_backward.launches``); CPU tensors run
+    ``bigru_backward_reference``. On CUDA, h_prev and dy must be
+    contiguous and in xg's dtype, with the shape of ys.
+    """
+    if xg.device.type == "cpu":
+        return bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy)
+    if xg.device.type != "cuda":
+        raise ValueError(f"bigru_backward runs on cuda or cpu, not {xg.device}")
+    _check(xg, w_h, b_h, mask)
+    t_len, nd, b, g3 = xg.shape
+    h = g3 // 3
+    for name, t in (("h_prev", h_prev), ("dy", dy)):
+        if tuple(t.shape) != (t_len, nd, b, h):
+            raise ValueError(f"{name} must be {(t_len, nd, b, h)}, got {tuple(t.shape)}")
+        if t.dtype != xg.dtype:
+            raise TypeError(f"{name} must be {xg.dtype}, got {t.dtype}")
+        if t.device != xg.device:
+            raise ValueError(f"{name} is on {t.device}, xg on {xg.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    packed = torch.empty((t_len, nd, b, 4 * h), dtype=xg.dtype, device=xg.device)
+    if packed.numel() == 0:
+        return packed
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    carry = torch.empty((nd, b, h), **f32)  # dL/dh_t, zeroed by the kernel
+    dhg = torch.empty((nd, b, g3), **f32)  # one step's [dr_pre, dz_pre, dhn] * m
+    direct = torch.empty((nd, b, h), **f32)  # one step's dh * z * m or dh
+    lib = _lib("bigru_bwd")
+    with torch.cuda.device(xg.device):
+        stream = torch.cuda.current_stream(xg.device).cuda_stream
+        err = lib.tpuasr_bigru_bwd(
+            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
+            h_prev.data_ptr(), dy.data_ptr(), packed.data_ptr(),
+            carry.data_ptr(), dhg.data_ptr(), direct.data_ptr(),
+            t_len, nd, b, h, _DTYPE_CODE[xg.dtype], stream)
+    _raise_on(lib, err, "bigru_bwd")
+    bigru_backward.launches += 2 * t_len
+    return packed
+
+
+bigru_backward.launches = 0
+
+
+class BiGRUFunction(torch.autograd.Function):
+    """``bigru_forward`` with ``bigru_backward`` as its gradient (the
+    ``custom_vjp`` of ``tpuasr.ops.gru.bigru_pallas``). dxg is the
+    packed gradient's first 3H columns in xg's dtype; dw is the f32
+    einsum of h_prev and dhg = [dr_pre, dz_pre, dhn] (read back from the
+    rounded packed output), cast to w_h's dtype; db is dhg's f32 sum.
+    Each gradient comes back in its input's dtype, as in the JAX package.
+    """
+
+    @staticmethod
+    def forward(ctx, xg, w_h, b_h, mask):
+        ys = bigru_forward(xg, w_h, b_h, mask)
+        ctx.save_for_backward(xg, w_h, b_h, mask, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg, w_h, b_h, mask, ys = ctx.saved_tensors
+        g3 = xg.shape[-1]
+        h = g3 // 3
+        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]], dim=0)
+        packed = bigru_backward(xg, w_h, b_h, mask, h_prev,
+                                dy.to(xg.dtype).contiguous())
+        dxg = packed[..., :g3]
+        dhg = torch.cat([packed[..., :2 * h], packed[..., g3:]], dim=-1).to(torch.float32)
+        dw = torch.einsum("tdbh,tdbg->dhg", h_prev.to(torch.float32), dhg)
+        db = dhg.sum(dim=(0, 2))
+        return dxg, dw.to(w_h.dtype), db.to(b_h.dtype), None

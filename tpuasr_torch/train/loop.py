@@ -1,0 +1,244 @@
+"""Epoch training loop (port of ``tpuasr/train/loop.py``, the per-batch
+path).
+
+SortaGrad epoch schedule, per-iteration loss logging with a deferred
+host sync, per-epoch greedy validation WER/CER, the learning rate
+annealed per epoch, per-epoch and per-batch checkpoints, best-model
+tracking, ``--continue-from`` exact resume (mid-epoch too) and
+``--finetune`` (weights only). Checkpoints are ``.tpuasr`` files that
+the JAX package reads and resumes, and vice versa.
+
+Divergence from the JAX package, on purpose: ``model_path`` is written
+only when a validation ran and its WER is no worse than the best so far
+(``tpuasr/train/loop.py:523`` also writes it after an epoch without
+validation, whose WER is NaN, overwriting the best model).
+"""
+
+from __future__ import annotations
+
+import signal
+import threading
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpuasr_torch.audio.frontend import FrontendConfig
+from tpuasr_torch.compat.weights import (
+    init_train_variables,
+    load_momentum,
+    model_from_variables,
+    momentum_to_opt_state,
+    to_jax_variables,
+)
+from tpuasr_torch.data.loader import AudioBatchLoader
+from tpuasr_torch.decode.greedy import GreedyDecoder
+from tpuasr_torch.decode.metrics import ErrorRateMeter
+from tpuasr_torch.device import resolve_device
+from tpuasr_torch.labels import Alphabet
+from tpuasr_torch.model.ds2 import ModelConfig
+from tpuasr_torch.train.checkpoint import CheckpointPackage, load_checkpoint, save_checkpoint
+from tpuasr_torch.train.logging import AverageMeter, MetricsLogger
+from tpuasr_torch.train.step import TrainConfig, make_eval_step, make_train_step
+
+
+@dataclass
+class LoopConfig:
+    epochs: int = 70
+    seed: int = 123456
+    save_folder: str | None = None
+    model_path: str | None = None  # best-model path
+    checkpoint_per_epoch: bool = True
+    checkpoint_per_batch: int = 0  # 0 = off
+    log_dir: str | None = None
+    tensorboard: bool = False
+    quiet: bool = False
+    # metrics stay on the device and are read (a blocking sync) every
+    # N steps; 1 reproduces the reference's per-iteration readout
+    sync_every: int = 10
+    # validation every N epochs; the final epoch always evaluates, and
+    # skipped epochs record NaN
+    eval_every: int = 1
+
+
+class _PreemptionExit(Exception):
+    pass
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGINT -> save an exact-resume checkpoint at the next step
+    boundary and return, instead of dying mid-step. A second signal
+    raises KeyboardInterrupt. No-op outside the main thread."""
+
+    def __init__(self):
+        self.triggered = False
+        self._prev: dict = {}
+        self._installed = False
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._prev[sig] = signal.signal(sig, self._handler)
+            self._installed = True
+
+    def _handler(self, signum, frame):
+        if self.triggered:
+            raise KeyboardInterrupt
+        self.triggered = True
+
+    def restore(self):
+        if self._installed:
+            for sig, prev in self._prev.items():
+                signal.signal(sig, prev)
+            self._installed = False
+
+
+def evaluate(eval_step, loader: AudioBatchLoader,
+             alphabet: Alphabet) -> tuple[float, float, float]:
+    """Greedy-decode validation. Returns (wer, cer, 0.0) in percent."""
+    decoder = GreedyDecoder(alphabet)
+    meter = ErrorRateMeter()
+    for batch in loader.epoch(0):
+        logits, out_lengths = eval_step(batch.waves, batch.wave_lengths)
+        for j, (hyp, ref) in enumerate(zip(decoder.decode(logits, out_lengths), batch.texts)):
+            if batch.valid[j]:
+                meter.update(hyp, ref)
+    return meter.wer, meter.cer, 0.0
+
+
+def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: TrainConfig,
+          loop_cfg: LoopConfig, train_loader: AudioBatchLoader,
+          val_loader: AudioBatchLoader | None, alphabet: Alphabet,
+          continue_from: str | None = None, finetune: bool = False,
+          device: str | torch.device = "cuda") -> CheckpointPackage:
+    """Train on ``device`` (CUDA unless the CPU is asked for) and return
+    the last checkpoint package. A fresh model is drawn from flax's init
+    distributions with ``loop_cfg.seed``; ``continue_from`` adopts the
+    checkpoint's model, frontend and alphabet, and unless ``finetune``
+    its optimizer state, progress and histories."""
+    dev = resolve_device(device)
+    logger = MetricsLogger(loop_cfg.log_dir, loop_cfg.tensorboard, loop_cfg.quiet)
+    start_epoch, iteration, start_batch = 0, 0, 0
+    histories: dict = {"loss": [], "wer": [], "cer": []}
+    best_wer = float("inf")
+    pkg = None
+    if continue_from:
+        pkg = load_checkpoint(continue_from)
+        model_cfg, frontend_cfg, alphabet = pkg.model_config, pkg.frontend_config, pkg.alphabet
+        variables = pkg.variables
+    else:
+        variables = init_train_variables(model_cfg, seed=loop_cfg.seed)
+    model = model_from_variables(variables, model_cfg, dev, trainable=True)
+    train_step = make_train_step(model, frontend_cfg, train_cfg)
+    eval_step = make_eval_step(model, frontend_cfg)
+    optimizer = train_step.optimizer
+    if pkg is not None and not finetune:  # exact resume
+        if pkg.opt_state is not None:
+            load_momentum(model, optimizer, pkg.opt_state)
+        start_epoch, iteration, start_batch = pkg.epoch, pkg.iteration, pkg.epoch_batch
+        histories = {"loss": list(pkg.loss_history), "wer": list(pkg.wer_history),
+                     "cer": list(pkg.cer_history)}
+        best_wer = pkg.best_wer
+
+    def make_pkg(epoch: int, epoch_batch: int = 0) -> CheckpointPackage:
+        return CheckpointPackage(
+            model_config=model_cfg, frontend_config=frontend_cfg, labels=alphabet.labels,
+            variables=to_jax_variables(model),
+            opt_state=momentum_to_opt_state(model, optimizer),
+            epoch=epoch, iteration=iteration, epoch_batch=epoch_batch,
+            loss_history=histories["loss"], wer_history=histories["wer"],
+            cer_history=histories["cer"], best_wer=best_wer)
+
+    guard = PreemptionGuard()
+    pkg = make_pkg(start_epoch, start_batch)
+    epoch, epoch_done = start_epoch, start_batch
+    try:
+        for epoch in range(start_epoch, loop_cfg.epochs):
+            lr = train_cfg.lr_at_epoch(epoch)  # anneal: lr / anneal**epoch
+            loss_meter = AverageMeter()
+            epoch_start = t_prev = window_t0 = time.time()
+            window_data = 0.0
+            pending: list = []  # (iteration, batch index, metrics on the device, utterances)
+            n_total = train_loader.num_batches(epoch)
+
+            def drain():
+                nonlocal window_t0, window_data
+                if not pending:
+                    return
+                # read first: the values wait for every queued step, so
+                # the window's wall time is throughput, not dispatch rate
+                rows = [(it, {k: float(v) for k, v in m.items()}, n) for it, _, m, n in pending]
+                wall = time.time() - window_t0
+                per_step, per_data = wall / len(rows), window_data / len(rows)
+                for it, vals, n in rows:
+                    loss_meter.update(vals["loss"], n=n)
+                    logger.log(it, {**vals, "lr": lr, "epoch": epoch, "step_time": per_step,
+                                    "data_time": per_data}, prefix="train/")
+                utts = sum(n for *_, n in rows)
+                logger.console(
+                    f"Epoch {epoch} [{pending[-1][1]}/{n_total}] "
+                    f"loss {loss_meter.val:.4f} (avg {loss_meter.avg:.4f}) "
+                    f"step {per_step * 1e3:.0f}ms data {per_data * 1e3:.0f}ms "
+                    f"({utts / max(wall, 1e-9):.1f} utt/s)")
+                pending.clear()
+                logger.flush()
+                window_t0, window_data = time.time(), 0.0
+
+            # mid-epoch resume: skip the batches the checkpoint consumed;
+            # the schedule is a function of (seed, epoch)
+            resume_skip = start_batch if epoch == start_epoch else 0
+            epoch_done = resume_skip
+            for i, batch in enumerate(train_loader.epoch(epoch)):
+                if i < resume_skip:
+                    continue
+                if guard.triggered:
+                    raise _PreemptionExit
+                window_data += time.time() - t_prev
+                metrics = train_step(batch.waves, batch.wave_lengths, batch.labels,
+                                     batch.label_lengths, batch.valid, lr)
+                iteration += 1
+                epoch_done = i + 1
+                pending.append((iteration, i, metrics, batch.size))
+                t_prev = time.time()
+                if len(pending) >= max(loop_cfg.sync_every, 1):
+                    drain()
+                if (loop_cfg.checkpoint_per_batch and loop_cfg.save_folder
+                        and (i + 1) % loop_cfg.checkpoint_per_batch == 0):
+                    drain()
+                    save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{i + 1}.ckpt",
+                                    make_pkg(epoch, i + 1))
+            drain()
+
+            histories["loss"].append(loss_meter.avg)
+            wer, cer = float("nan"), float("nan")
+            eval_this = ((epoch + 1) % max(loop_cfg.eval_every, 1) == 0
+                         or epoch + 1 == loop_cfg.epochs)
+            if val_loader is not None and eval_this:
+                wer, cer, _ = evaluate(eval_step, val_loader, alphabet)
+            histories["wer"].append(wer)
+            histories["cer"].append(cer)
+            logger.log(epoch, {"loss": loss_meter.avg, "wer": wer, "cer": cer,
+                               "epoch_time": time.time() - epoch_start}, prefix="epoch/")
+            logger.console(
+                f"Epoch {epoch} done in {time.time() - epoch_start:.1f}s: "
+                f"loss {loss_meter.avg:.4f} WER {wer:.2f} CER {cer:.2f} lr {lr:.2e}")
+
+            pkg = make_pkg(epoch + 1)
+            if loop_cfg.save_folder and loop_cfg.checkpoint_per_epoch:
+                save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_{epoch + 1}.ckpt", pkg)
+            if loop_cfg.model_path and not np.isnan(wer) and wer <= best_wer:
+                best_wer = pkg.best_wer = wer
+                save_checkpoint(loop_cfg.model_path, pkg)
+    except _PreemptionExit:
+        pkg = make_pkg(epoch, epoch_done)
+        if loop_cfg.save_folder:
+            path = f"{loop_cfg.save_folder}/tpuasr_preempt.ckpt"
+            save_checkpoint(path, pkg)
+            logger.console(f"preemption signal: saved {path}; resume with "
+                           f"--continue-from {path}")
+        else:
+            logger.console("preemption signal: stopping (no --save-folder, "
+                           "nothing persisted)")
+    finally:
+        guard.restore()
+    logger.close()
+    return pkg
