@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of tpuasr_torch: the training and batch serving paths
-on one card.
+"""GPU smoke run of tpuasr_torch: the training, beam-search evaluation
+and batch serving paths on one card.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -33,7 +33,28 @@ non-zero without printing a result:
                serving path. Then one train step through the kernels
                against the plain versions on the same weights and batch,
                and the time split of one train step.
-  5. serve   — a full-width flagship checkpoint (5 BiGRU-800 layers,
+  5. beam    — K3 (prefix beam search) against its plain version on the
+               card in four LM modes (none; a char and a word trigram of
+               the corpus; a word trigram of a 50k synthetic vocabulary,
+               158,337 entries, whose packing is timed) at B=32, W=10,
+               C=44, T'=251 and 826, on peaked logits of the corpus
+               sentences and on the trained checkpoint's logits; 4
+               chunked stateful calls against one call; then its times
+               and the plain version's beside the bound.
+  6. decode  — the evaluation main path: tpuasr_torch.cli.train_lm builds
+               a word and a char trigram ARPA from the training
+               transcripts; tpuasr_torch.cli.test --decoder beam-device
+               (B=32, W=10, --timing-repeats 2) on the trained checkpoint
+               over the validation manifest with the word LM, the char LM
+               and no LM, K3's launch count (zeroed before each run)
+               grown each time, and the word-LM run repeated with K3's
+               plain version must print the same summary and hypotheses;
+               cli.transcribe --n-best 3 on a 5 s WAV (one K3 launch) and
+               a 20 s WAV (long-form, the host beam); TranscriptionService
+               with the device beam, whose warm-up of the 5 s and 16.5 s
+               buckets launches K3 twice, answering the 5 s WAV; then the
+               time split of one 32-row decode batch.
+  7. serve   — a full-width flagship checkpoint (5 BiGRU-800 layers,
                44 classes, bf16 compute, seeded random weights) written
                with the port's save_checkpoint and served by
                TranscriptionService + make_http_server on 127.0.0.1:
@@ -46,7 +67,7 @@ non-zero without printing a result:
                Then one lone request's latency and a time split of one
                service batch (frontend, convs, RNN layers, GRU kernel,
                head, decode).
-  6. a {"kernels": [...]} line, then the nvidia-smi line, then the last
+  8. a {"kernels": [...]} line, then the nvidia-smi line, then the last
      line {"ok": true, "device": {...}}.
 
 Tolerances. BiGRU kernel vs plain: f32 max-abs <= 1e-4 (both sum the
@@ -76,6 +97,10 @@ relative norm error <= 5e-2, because bf16 activations (h rounded every
 step, the kernel and the plain loop summing in different orders) move
 by ulps of 2**-8 that five layers, a 251-step recurrence and the
 backward carry on.
+K3 vs plain: parents and chars equal, scores within 1e-5 relative, best
+texts equal; both run the same f32 operations in the same order with
+the card's expf/log1pf (an absorbed sum has at most one term, since the
+beam's prefixes are distinct), so only last bits may differ.
 """
 
 from __future__ import annotations
@@ -713,6 +738,423 @@ def train_breakdown(out, paths, smi: str) -> dict:
     return row
 
 
+# -------------------------------------------------------------------- beam
+
+BEAM_W, BEAM_TOP_N = 10, 40
+
+
+def corpus_texts(paths) -> list:
+    from tpuasr_torch.data.manifest import read_manifest
+
+    return [e.read_transcript().strip() for e in read_manifest(paths["all"])]
+
+
+def large_vocab_lines(vocab_size: int, seed: int = 0) -> list:
+    """A synthetic large-vocabulary corpus: every word of a seeded,
+    sorted vocabulary of random 3-7 letter words once, in lines of 6
+    (so a trigram model of it has ~vocab unique bi- and trigrams)."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    vocab = sorted({"".join(rng.choice(letters, size=rng.randint(3, 8)))
+                    for _ in range(int(vocab_size * 1.2))})[:vocab_size]
+    order = np.arange(len(vocab))
+    rng.shuffle(order)
+    return [" ".join(vocab[i] for i in order[s:s + 6]) for s in range(0, len(order), 6)]
+
+
+def beam_decoders(alphabet, texts, vocab_size: int = 50000) -> dict:
+    """The four LM modes of K3's checks, as DeviceBeamDecoders (W=10,
+    cutoff_top_n 40, alpha 0.8, beta 1.0): no LM; a char trigram and a
+    word trigram of the corpus texts; a word trigram of a large
+    synthetic vocabulary (its table packing is timed)."""
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.lm import train_ngram
+
+    kw = dict(beam_width=BEAM_W, cutoff_top_n=BEAM_TOP_N, alpha=0.8, beta=1.0)
+    char_lines = [" ".join("<sp>" if ch == " " else ch for ch in t) for t in texts]
+    t0 = time.perf_counter()
+    big = train_ngram(large_vocab_lines(vocab_size), order=3)
+    t1 = time.perf_counter()
+    decs = {"none": DeviceBeamDecoder(alphabet, beam_width=BEAM_W, cutoff_top_n=BEAM_TOP_N),
+            "char": DeviceBeamDecoder(alphabet, char_lm=train_ngram(char_lines, order=3), **kw),
+            "word": DeviceBeamDecoder(alphabet, word_lm=train_ngram(texts, order=3), **kw)}
+    t2 = time.perf_counter()
+    decs["word-large"] = DeviceBeamDecoder(alphabet, word_lm=big, **kw)
+    tables = decs["word-large"]._word_tables
+    emit("beam_lm", vocab=vocab_size, entries=sum(len(t) for t in big.ngrams),
+         caps=[len(k) for k in tables.keys1], salts=list(tables.salts),
+         train_ngram_s=t1 - t0, pack_s=time.perf_counter() - t2)
+    return decs
+
+
+def sentence_logits(alphabet, texts, b: int, t: int, seed: int):
+    """(B, T, C) logits spelling known sentences, each char for 1-3 frames
+    and a blank after it (+6 on the spelled class over N(0, 1) noise), and
+    ragged lengths: row 0 the whole T, row 1 none, the others where their
+    sentences end."""
+    rng = np.random.RandomState(seed)
+    c_num = alphabet.size
+    logits = rng.standard_normal((b, t, c_num)).astype(np.float32)
+    lengths = np.zeros(b, np.int32)
+    for j in range(b):
+        if j == 1:
+            continue
+        f, k = 0, j
+        ids = alphabet.encode(texts[k % len(texts)])
+        while f + 6 < t:
+            if not ids:
+                k += 1
+                ids = [alphabet.space_id] + alphabet.encode(texts[k % len(texts)])
+            r = rng.randint(1, 4)
+            logits[j, f:f + r, ids.pop(0)] += 6.0
+            logits[j, f + r:f + r + 2, alphabet.blank_id] += 6.0
+            f += r + rng.randint(1, 3)
+        lengths[j] = t if j == 0 else f
+    return logits, lengths
+
+
+def flagship_logits(out, paths, bucket_s: float, device: str = "cuda"):
+    """The trained flagship's logits over the validation utterances (5 s
+    bucket) or over three of them played back to back (16.5 s bucket)."""
+    import torch
+
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.step import make_eval_step
+
+    pkg = load_checkpoint(str(out / "best.ckpt"))
+    model = model_from_variables(pkg.variables, pkg.model_config, torch.device(device))
+    eval_step = make_eval_step(model, pkg.frontend_config)
+    spec = BucketSpec()
+    plan = make_buckets(order_and_prune(read_manifest(paths["val"])), 32, spec, shuffle=False)
+    batch = next(iter(AudioBatchLoader(plan, pkg.alphabet, transfer_dtype="int16").epoch(0)))
+    waves, lens = np.asarray(batch.waves), np.asarray(batch.wave_lengths)
+    if bucket_s > 5.0:
+        n = spec.bucket_samples(spec.bucket_of(bucket_s))
+        long_w = np.zeros((waves.shape[0], n), waves.dtype)
+        long_l = np.zeros_like(lens)
+        for j in range(waves.shape[0]):
+            parts = [waves[(j + i) % len(waves), :lens[(j + i) % len(waves)]] for i in range(3)]
+            cat = np.concatenate(parts)[:n]
+            long_w[j, :len(cat)], long_l[j] = cat, len(cat)
+        waves, lens = long_w, long_l
+    logits, out_len = eval_step(waves, lens)
+    return logits.float().cpu().numpy(), out_len.cpu().numpy().astype(np.int32)
+
+
+def beam_bound(lengths, c: int, w: int, dec) -> tuple:
+    """K3's least time for one call: the operations its frames need (the
+    frames up to each utterance's length) at the f32 peak, or the bytes
+    (log-probs in, int8 backpointers and f32 scores out, the LM tables
+    read once), whichever is larger. Operations per utterance and frame:
+    the C*C rank compares (2 each), W*C extends of ~10 operations with 2
+    more for each of the W stay hashes they are matched against, a
+    log-add of ~6 over the W + W*C pool, W selection passes over it (2
+    each); an LM adds its probes (8 slots of ~4 operations each): the
+    word LM ~2 x order probes a beam, the char LM order probes an
+    extend."""
+    e, pool = w * c, w + w * c
+    per_frame = 2 * c * c + e * (10 + 2 * w) + 6 * pool + 2 * w * pool
+    table_bytes = 0
+    if dec._word_tables is not None:
+        per_frame += w * 2 * 8 * 4 * dec._word_tables.order
+        table_bytes = 16 * sum(len(k) for k in dec._word_tables.keys1)
+    elif dec._lm_tables is not None and dec.cfg.alpha != 0.0:
+        per_frame += e * 8 * 4 * dec._lm_tables.order
+        table_bytes = 16 * sum(len(k) for k in dec._lm_tables.keys1)
+    frames = int(np.asarray(lengths).sum())
+    b, t = len(lengths), int(np.asarray(lengths).max(initial=0))
+    ops = float(per_frame) * frames
+    nbytes = 4.0 * b * t * c + 4 * b + 2.0 * b * t * w + 4.0 * b * w + table_bytes
+    by_ops, by_bytes = ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes", ops
+
+
+def best_texts(dec, parents, chars, scores, n_class: int) -> list:
+    from tpuasr_torch.decode.beam import _backtrack
+
+    store, toff, blen, _ = _backtrack(*dec.to_host(parents, chars, scores, n_class))
+    return [dec.readout(store[j, 0], toff[j, 0], blen[j, 0])[0] for j in range(store.shape[0])]
+
+
+def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: int = 50000):
+    """K3 against its plain version on the card, in four LM modes, at
+    B=32, W=10, C=44, T'=251 and T'=826, on peaked logits of the corpus
+    sentences plus noise and on the trained flagship's logits: equal
+    parents and chars, scores within 1e-5 relative, equal texts; then 4
+    chunked stateful calls against one call; then times beside the bound.
+    ``device`` and ``vocab_size`` other than the defaults only rehearse
+    it on the CPU."""
+    import torch
+
+    from tpuasr_torch.labels import Alphabet
+    from tpuasr_torch.ops.beam import beam_scan, beam_scan_reference, make_beam_state
+
+    cuda = torch.device(device)
+    alphabet = Alphabet()
+    texts = corpus_texts(paths)
+    decs = beam_decoders(alphabet, texts, vocab_size)
+    inputs = {}
+    for t, bucket_s in ((251, 5.0), (826, 16.5)):
+        inputs[f"sentences-{t}"] = sentence_logits(alphabet, texts, 32, t, seed=t)
+        inputs[f"flagship-{t}"] = flagship_logits(out, paths, bucket_s, device)
+    worst, rows = 0.0, []
+    for mode, dec in decs.items():
+        for name, (logits, lengths) in inputs.items():
+            lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
+            kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+                      **dec.kernel_lm_kwargs(lp.shape[2], cuda))
+            got = beam_scan(lp, lens, **kw)
+            torch.cuda.synchronize()
+            want = beam_scan_reference(lp, lens, **kw)
+            err = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1.0)).max().item()
+            t_got = best_texts(dec, *got, lp.shape[2])
+            t_want = best_texts(dec, *want, lp.shape[2])
+            row = {"mode": mode, "input": name, "shape": list(lp.shape),
+                   "parents_equal": bool(torch.equal(got[0], want[0])),
+                   "chars_equal": bool(torch.equal(got[1], want[1])),
+                   "score_rel_err": err, "texts_equal": t_got == t_want,
+                   "score_abs_err": (got[2] - want[2]).abs().max().item(),
+                   "text_0": t_got[0][:60]}
+            emit("kernel", kernel="beam", **row)
+            check(row["parents_equal"] and row["chars_equal"] and row["texts_equal"]
+                  and err <= 1e-5, f"K3 vs plain: {row}")
+            worst = max(worst, row["score_abs_err"])
+            rows.append(row)
+
+    # stateful mode: 4 chunked calls equal one call
+    logits, lengths = inputs["flagship-251"]
+    for mode, dec in decs.items():
+        lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
+        kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+                  **dec.kernel_lm_kwargs(lp.shape[2], cuda))
+        full = beam_scan(lp, lens, return_state=True, **kw)
+        lm_mode = mode.split("-")[0]
+        ring = max(1, dec._word_tables.order - 1) if lm_mode == "word" else 0
+        state = make_beam_state(32, BEAM_W, lm_mode=lm_mode, ring_len=ring, device=cuda)
+        step = -(-lp.shape[1] // 4)
+        ps, cs = [], []
+        for t0 in range(0, lp.shape[1], step):
+            n = torch.clamp(lens - t0, 0, step).to(torch.int32)
+            p, c, scores, state = beam_scan(lp[:, t0:t0 + step].contiguous(), n, state=state,
+                                            return_state=True, **kw)
+            ps.append(p)
+            cs.append(c)
+        torch.cuda.synchronize()
+        same = (torch.equal(torch.cat(ps, 1), full[0]) and torch.equal(torch.cat(cs, 1), full[1])
+                and torch.equal(scores, full[2])
+                and all(torch.equal(a, b) for a, b in zip(state, full[3])))
+        emit("kernel", kernel="beam", mode=mode, input="flagship-251", stateful_chunks=4,
+             equal_to_one_call=same)
+        check(same, f"K3 stateful chunks != one call ({mode})")
+
+    timings = []
+    for mode, dec in decs.items():
+        for name in ("flagship-251", "flagship-826"):
+            logits, lengths = inputs[name]
+            lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
+            kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+                      **dec.kernel_lm_kwargs(lp.shape[2], cuda))
+            bound_ms, bound_by, ops = beam_bound(lengths, lp.shape[2], BEAM_W, dec)
+            row = {"mode": mode, "shape": list(lp.shape), "frames": int(lengths.sum()),
+                   "ms": time_ms(lambda: beam_scan(lp, lens, **kw), iters=10, warmup=2),
+                   "plain_ms": (time_ms(lambda: beam_scan_reference(lp, lens, **kw), iters=1,
+                                        warmup=0) if name.endswith("251") else None),
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "ops": ops, "nvidia_smi": smi}
+            emit("kernel_time", kernel="beam", **row)
+            timings.append(row)
+    return worst, timings
+
+
+def parse_summary(lines: list) -> dict:
+    import re
+
+    out = {}
+    for ln in lines:
+        m = re.match(r"Test Summary \tAverage WER ([\d.]+)\tAverage CER ([\d.]+)$", ln)
+        if m:
+            out.update(wer=float(m.group(1)), cer=float(m.group(2)))
+        m = re.match(r"Timing \t(\d+) utts in ([\d.]+)s = ([\d.]+) utt/s$", ln)
+        if m:
+            out.update(utts=int(m.group(1)), seconds=float(m.group(2)),
+                       utt_per_s=float(m.group(3)))
+    return out
+
+
+def run_cli(main, argv) -> tuple:
+    """(return code, stdout lines) of a CLI main."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = main(argv)
+    return rc, log.getvalue().splitlines()
+
+
+def phase_decode(out, paths, smi: str, device: str = "cuda"):
+    """The slice's main path: tpuasr_torch.cli.test --decoder beam-device
+    on the trained flagship checkpoint and the validation manifest (32
+    utterances of 5 s, one batch of 32), with a word-LM ARPA and a
+    char-LM ARPA built by tpuasr_torch.cli.train_lm from the training
+    transcripts, and with no LM; then cli.transcribe --n-best 3 on a 5 s
+    and a 20 s WAV (long-form: the host beam). ``device`` "cpu" only
+    rehearses it."""
+    import tpuasr_torch.ops.beam as beam_mod
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.cli import train_lm, transcribe
+
+    work = ROOT / "build" / "chip_smoke"
+    lm_word, lm_char = str(work / "lm_word.arpa"), str(work / "lm_char.arpa")
+    for extra in ([], ["--char-level"]):
+        rc, lines = run_cli(train_lm.main, ["--manifest", paths["train"], "--order", "3",
+                                            "--out", lm_char if extra else lm_word, *extra])
+        check(rc == 0, f"cli.train_lm {extra}: {lines}")
+    ckpt = str(out / "best.ckpt")
+    runs = {"word": ["--lm-path", lm_word], "char": ["--lm-path", lm_char,
+                                                     "--device-lm-level", "char"], "none": []}
+    results = {}
+    for name, extra in runs.items():
+        argv = ["--model-path", ckpt, "--test-manifest", paths["val"], "--decoder", "beam-device",
+                "--beam-width", str(BEAM_W), "--batch-size", "32", "--timing",
+                "--timing-repeats", "2", "--save-output", str(work / f"hyps_{name}.jsonl"),
+                "--device", device, *extra]
+        beam_mod.beam_scan.launches = 0  # ---- the main path starts here
+        rc, lines = run_cli(test_cli.main, argv)
+        launches = beam_mod.beam_scan.launches  # ---- and ends here
+        res = {"lm": name, **parse_summary(lines), "launches": launches}
+        emit("decode", **res, nvidia_smi=smi)
+        check(rc == 0 and "wer" in res and "utt_per_s" in res, f"cli.test {name}: {lines}")
+        n_val = len(Path(paths["val"]).read_text().splitlines())
+        check(res["utts"] == n_val, f"cli.test {name} scored {res['utts']} of {n_val}")
+        if device == "cuda":
+            check(launches > 0, f"K3 never launched in cli.test ({name})")
+        results[name] = res
+        if name == "word":  # the same run with K3's plain version: the same output
+            argv_plain = argv[:argv.index("--save-output") + 1] + [
+                str(work / "hyps_word_plain.jsonl")] + argv[argv.index("--save-output") + 2:]
+            with mock.patch.object(beam_mod, "beam_scan", beam_mod.beam_scan_reference):
+                rc, plain_lines = run_cli(test_cli.main, argv_plain)
+            same = (parse_summary(plain_lines).get("wer") == res["wer"]
+                    and parse_summary(plain_lines).get("cer") == res["cer"]
+                    and (work / "hyps_word.jsonl").read_text()
+                    == (work / "hyps_word_plain.jsonl").read_text())
+            emit("decode_parity", lm=name, plain_summary_and_hyps_equal=same)
+            check(rc == 0 and same, "cli.test with K3 != with its plain version")
+
+    wav5 = Path(paths["val"]).read_text().splitlines()[0].split(",")[0]
+    wav20 = work / "long20.wav"
+    wav20.write_bytes(wav_bytes(20.0, seed=7))
+    for wav, seconds in ((wav5, 5.0), (str(wav20), 20.0)):
+        beam_mod.beam_scan.launches = 0  # ---- the main path starts here
+        t0 = time.perf_counter()
+        rc, lines = run_cli(transcribe.main, [
+            "--model-path", ckpt, "--audio-path", wav, "--decoder", "beam-device",
+            "--lm-path", lm_word, "--beam-width", str(BEAM_W), "--n-best", "3",
+            "--device", device])
+        launches = beam_mod.beam_scan.launches  # ---- and ends here
+        emit("transcribe", seconds=seconds, wall_s=time.perf_counter() - t0,
+             launches=launches, lines=lines[:3])
+        check(rc == 0 and lines, f"cli.transcribe {seconds}s: {lines}")
+        if seconds <= 16.5:  # n-best rows "score<TAB>text"; K3 decoded them
+            check(1 <= len(lines) <= 3 and all("\t" in ln for ln in lines), f"n-best {lines}")
+            if device == "cuda":
+                check(launches == 1, f"K3 launches on a 5 s transcription: {launches}")
+        else:  # long-form: the best text from the host beam, as in tpuasr
+            check(len(lines) == 1 and launches == 0, f"long-form {lines} {launches}")
+        results[f"transcribe_{int(seconds)}s"] = launches
+
+    # the service with the device beam: its warm-up launches K3 once per
+    # warmed bucket, then one request is one more launch
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.lm import load_lm
+    from tpuasr_torch.serve import ServeConfig, TranscriptionService
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+
+    pkg = load_checkpoint(ckpt)
+    dec = DeviceBeamDecoder(pkg.alphabet, beam_width=BEAM_W, word_lm=load_lm(lm_word),
+                            alpha=0.8, beta=1.0, cutoff_top_n=BEAM_TOP_N)
+    beam_mod.beam_scan.launches = 0  # ---- the main path starts here
+    svc = TranscriptionService(ckpt, ServeConfig(warmup_seconds=(5.0, 16.5)), decoder=dec,
+                               package=pkg, device=device)
+    try:
+        warm = beam_mod.beam_scan.launches
+        text, offsets = svc.transcribe_wav_bytes(Path(wav5).read_bytes())
+    finally:
+        svc.close()
+    launches = beam_mod.beam_scan.launches  # ---- and ends here
+    emit("serve_beam", warmup_launches=warm, launches=launches, text=text[:60])
+    check(isinstance(text, str) and len(offsets) == len(text), "service beam answer")
+    if device == "cuda":
+        check(warm == 2 and launches == 3, f"K3 launches in the service: {warm}, {launches}")
+    results["serve"] = launches
+    return results, lm_word
+
+
+def decode_breakdown(out, paths, lm_path: str, smi: str, device: str = "cuda") -> dict:
+    """Where one 32-row beam-decode batch's time goes: CUDA events around
+    the eval step, the log-softmax and K3; host clock around the
+    device-to-host copy of the backpointers (after a synchronize) and the
+    host backtrack plus readout. Means over 3 batches after a warm one.
+    The decoder is the main path's: W=10 with the word-LM ARPA."""
+    import torch
+
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder, _backtrack
+    from tpuasr_torch.decode.lm import load_lm
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.step import make_eval_step
+
+    pkg = load_checkpoint(str(out / "best.ckpt"))
+    model = model_from_variables(pkg.variables, pkg.model_config, torch.device(device))
+    eval_step = make_eval_step(model, pkg.frontend_config)
+    dec = DeviceBeamDecoder(pkg.alphabet, beam_width=BEAM_W, word_lm=load_lm(lm_path),
+                            alpha=0.8, beta=1.0, cutoff_top_n=BEAM_TOP_N)
+    plan = make_buckets(order_and_prune(read_manifest(paths["val"])), 32, BucketSpec(),
+                        shuffle=False)
+    batch = next(iter(AudioBatchLoader(plan, pkg.alphabet, transfer_dtype="int16").epoch(0)))
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    totals: dict = {}
+    reps = 3
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        e0 = event()
+        logits, out_len = eval_step(batch.waves, batch.wave_lengths)
+        e1 = event()
+        lp, lens = dec.logprobs(logits, out_len)
+        e2 = event()
+        found = dec.search(lp, lens)
+        e3 = event()
+        torch.cuda.synchronize()
+        h1 = time.perf_counter()
+        host = dec.to_host(*found, lp.shape[2])
+        h2 = time.perf_counter()
+        store, toff, blen, _ = _backtrack(*host)
+        texts = [dec.readout(store[j, 0], toff[j, 0], blen[j, 0])[0] for j in range(len(blen))]
+        h3 = time.perf_counter()
+        if rep == 0:
+            continue  # warm
+        for k, v in (("eval_step_ms", e0.elapsed_time(e1)), ("log_softmax_ms", e1.elapsed_time(e2)),
+                     ("k3_ms", e2.elapsed_time(e3)), ("device_ms", e0.elapsed_time(e3)),
+                     ("host_to_sync_ms", 1e3 * (h1 - h0)), ("d2h_copy_ms", 1e3 * (h2 - h1)),
+                     ("backtrack_readout_ms", 1e3 * (h3 - h2)), ("batch_ms", 1e3 * (h3 - h0))):
+            totals[k] = totals.get(k, 0.0) + v / reps
+    row = {"batch": list(lp.shape), "lm": "word", **totals, "texts": len(texts),
+           "utt_per_s": 32 / (totals["batch_ms"] / 1e3), "nvidia_smi": smi}
+    emit("decode_breakdown", **row)
+    return row
+
+
 # ------------------------------------------------------------------- serve
 
 def wav_bytes(seconds: float, seed: int, sr: int = 16000) -> bytes:
@@ -952,7 +1394,7 @@ def main() -> int:
     emit("device", name=name, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
-    build_all(["bigru_fwd", "bigru_bwd", "ctc"])
+    build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam"])
 
     k1f_row, k1f_timings = phase_kernel()
     k1b_row, k1b_timings = phase_kernel_bwd()
@@ -960,10 +1402,16 @@ def main() -> int:
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)
     train_breakdown(out, paths, smi)
+    beam_err, beam_timings = phase_kernel_beam(out, paths, smi)
+    decode_res, lm_word = phase_decode(out, paths, smi)
+    decode_breakdown(out, paths, lm_word, smi)
     serve_launches = phase_serve(smi, name)
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
+    beam_launches = {**{f"test_{k}": v["launches"] for k, v in decode_res.items()
+                        if isinstance(v, dict)},
+                     **{k: v for k, v in decode_res.items() if not isinstance(v, dict)}}
     card = {"card": smi}
     print(json.dumps({"kernels": [
         kernel_entry("bigru_fwd", "tpuasr_torch/ops/csrc/bigru_fwd.cu",
@@ -986,6 +1434,10 @@ def main() -> int:
                      train_launches["ctc_beta"], ctc_row["demit_max_abs_err"],
                      ctc_timing["ctc_beta"],
                      dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], **card),
+        kernel_entry("beam", "tpuasr_torch/ops/csrc/beam.cu",
+                     "tpuasr/ops/beam.py:89 _beam_kernel", sum(beam_launches.values()),
+                     beam_err, next(r for r in beam_timings if r["mode"] == "word"),
+                     launches_by_path=beam_launches, timings=beam_timings, **card),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

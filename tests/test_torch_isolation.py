@@ -48,6 +48,7 @@ def test_sources_name_no_jax_import():
 def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
+    from tpuasr_torch.cli.test import main as test_main
     from tpuasr_torch.cli.transcribe import main
     from tpuasr_torch.device import resolve_device
     from tpuasr_torch.serve import TranscriptionService
@@ -58,6 +59,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked_for(tmp_path):
         TranscriptionService(str(tmp_path / "missing.ckpt"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--model-path", "m", "--audio-path", "a.wav"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test_main(["--model-path", "m", "--test-manifest", "t.csv"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("mps")

@@ -20,6 +20,12 @@ frames where they are finite, dL/demit within 2e-4 absolute
 (tests/test_pallas_ctc.py's loss and gradient tolerances); both sum the
 same three exponentials in the same order, so the difference is the
 exp/log implementations' last bits.
+
+Prefix beam search (K3): parents and chars equal to the plain version's
+and scores within 1e-5 relative (at least 1e-5 absolute), in every LM
+mode and in stateful mode; both run the same f32 operations in the same
+order on the same card's exp/log1p, so only a sum over several absorbed
+extends, taken in another order, could move a last bit.
 """
 
 import os
@@ -30,7 +36,11 @@ import pytest
 import torch
 
 from torch_helpers import cuda, gru_inputs  # noqa: F401 (fixture)
+from tpuasr_torch.decode.beam import pack_lm_tables, pack_word_lm_tables
+from tpuasr_torch.decode.lm import train_ngram
+from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops.beam import beam_scan, beam_scan_reference, flat_tables, make_beam_state
 from tpuasr_torch.ops.ctc import (
     LOG_EPS,
     CTCFromEmit,
@@ -236,3 +246,112 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
         ctc_alpha(emit.transpose(0, 1).contiguous().transpose(0, 1), skip, valid_s, fv, init)
     with pytest.raises(ValueError):
         ctc_beta(emit, skip, fv, init, emit, init[:, 0].cpu())
+
+
+def _beam_lm(mode, alphabet, device):
+    """K3's LM kwargs for a mode, from a seeded trigram over the
+    alphabet's letters."""
+    if mode == "none":
+        return {}
+    rng = np.random.RandomState(5)
+    letters = list(alphabet.labels[1:-1])
+    words = ["".join(rng.choice(letters, size=rng.randint(1, 4))) for _ in range(30)]
+    lines = [" ".join(rng.choice(words, size=5)) for _ in range(40)]
+    if mode == "char":
+        lines = [" ".join("<sp>" if ch == " " else ch for ch in ln) for ln in lines]
+        tables, key = pack_lm_tables(train_ngram(lines, order=3), alphabet), "char_tables"
+    else:
+        tables, key = pack_word_lm_tables(train_ngram(lines, order=3), alphabet), "word_tables"
+    return {key: flat_tables(tables, device), "alpha": 0.8, "beta": 0.6,
+            "space_id": alphabet.space_id}
+
+
+def _beam_inputs(device, b, t, c, seed=0):
+    """Seeded log-probs (B, T, C) and ragged lengths, one row of 0."""
+    rng = np.random.RandomState(seed)
+    lp = torch.log_softmax(torch.from_numpy((rng.randn(b, t, c) * 2.5).astype(np.float32)), -1)
+    lengths = rng.randint(1, t + 1, size=b).astype(np.int32)
+    lengths[0] = t
+    if b > 2:
+        lengths[2] = 0
+    return lp.to(device).contiguous(), torch.from_numpy(lengths).to(device)
+
+
+def _assert_beam_equal(got, want):
+    parents, chars, scores = got[:3]
+    assert parents.dtype == want[0].dtype and torch.equal(parents, want[0])
+    assert torch.equal(chars, want[1])
+    tol = 1e-5 * want[2].abs().clamp(min=1.0)
+    assert bool(((scores - want[2]).abs() <= tol).all()), (scores, want[2])
+
+
+BEAM_SHAPES = [  # (B, T, C, W)
+    pytest.param(4, 30, 5, 5, id="small"),
+    pytest.param(1, 1, 5, 1, id="B1-T1-W1"),
+    pytest.param(3, 17, 37, 8, id="C37"),
+    pytest.param(32, 60, 44, 10, id="flagship-width"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "char", "word"])
+@pytest.mark.parametrize("b,t,c,w", BEAM_SHAPES)
+def test_beam_kernel_matches_reference(mode, b, t, c, w, cuda):  # noqa: F811
+    labels = ("_AB C" if c == 5 else
+              ("_" + "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789ÀÁÂÃÇÉÊÍ")[:c - 1] + " ")
+    alphabet = Alphabet(labels=labels)
+    lp, lengths = _beam_inputs(cuda, b, t, c, seed=b + t)
+    kw = dict(beam_width=w, blank_id=0, cutoff_top_n=40, **_beam_lm(mode, alphabet, cuda))
+    before = beam_scan.launches
+    got = beam_scan(lp, lengths, **kw)
+    torch.cuda.synchronize()
+    assert beam_scan.launches == before + 1
+    _assert_beam_equal(got, beam_scan_reference(lp, lengths, **kw))
+    if b > 2:
+        assert bool((got[1][2] == -1).all())  # the length-0 row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "char", "word"])
+def test_beam_kernel_stateful_chunks(mode, cuda):  # noqa: F811
+    b, t, c, w = 4, 32, 5, 5
+    alphabet = Alphabet(labels="_AB C")
+    lp, lengths = _beam_inputs(cuda, b, t, c, seed=9)
+    kw = dict(beam_width=w, blank_id=0, **_beam_lm(mode, alphabet, cuda))
+    full = beam_scan(lp, lengths, return_state=True, **kw)
+    ring = 2 if mode == "word" else 0
+    state = make_beam_state(b, w, lm_mode=mode, ring_len=ring, device=cuda)
+    state_ref = state
+    ps, cs = [], []
+    for t0 in range(0, t, 8):  # 4 chunks
+        n = torch.clamp(lengths - t0, 0, 8).to(torch.int32)
+        chunk = lp[:, t0:t0 + 8].contiguous()
+        p, ch, scores, state = beam_scan(chunk, n, state=state, return_state=True, **kw)
+        ref = beam_scan_reference(chunk, n, state=state_ref, return_state=True, **kw)
+        state_ref = ref[3]
+        _assert_beam_equal((p, ch, scores), ref)
+        for a, e in zip(state, state_ref):
+            assert a.dtype == e.dtype and torch.equal(a, e)
+        ps.append(p)
+        cs.append(ch)
+    torch.cuda.synchronize()
+    _assert_beam_equal((torch.cat(ps, 1), torch.cat(cs, 1), scores), full)
+    for a, e in zip(state, full[3]):
+        assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_beam_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
+    lp, lengths = _beam_inputs(cuda, 3, 6, 5)
+    kw = dict(beam_width=4, blank_id=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        beam_scan(lp.transpose(0, 1).contiguous().transpose(0, 1), lengths, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        beam_scan(lp, lengths.long(), **kw)
+    with pytest.raises(ValueError, match="beam_width"):
+        beam_scan(lp, lengths, beam_width=65, blank_id=0)
+    with pytest.raises(ValueError, match="classes"):
+        beam_scan(torch.zeros(2, 3, 127, device=cuda), lengths[:2], **kw)
+    word = _beam_lm("word", Alphabet(labels="_AB C"), "cpu")
+    with pytest.raises(ValueError, match="LM tables"):
+        beam_scan(lp, lengths, **kw, **word)

@@ -182,7 +182,7 @@ def test_transcribe_cli_prints_jax_text(ckpt, tmp_path, capsys):
     assert main(args + ["--device", "cpu"]) == 0
     assert capsys.readouterr().out == want
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(args + ["--device", "cpu", "--decoder", "beam"])
+        main(args + ["--device", "cpu", "--decoder", "beam-native"])
 
 
 @pytest.mark.parametrize("long_audio", ["reject", "truncate"])
@@ -209,4 +209,39 @@ def test_serve_cli_rejects_unported_modes(ckpt):
     with pytest.raises(NotImplementedError, match="streaming"):
         main(["--model-path", ckpt, "--streaming", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--model-path", ckpt, "--decoder", "beam-device", "--device", "cpu"])
+        main(["--model-path", ckpt, "--decoder", "beam-native", "--device", "cpu"])
+
+
+def test_service_with_device_beam_matches_jax(ckpt, jax_side, monkeypatch):
+    """TranscriptionService with DeviceBeamDecoder (word LM): its warm-up
+    runs the beam search once per warmed bucket, and its answer equals
+    tpuasr's device beam (XLA path) on the same wave."""
+    import tpuasr_torch.ops.beam as beam_ops
+    from tpuasr.decode.beam import DeviceBeamDecoder as JaxBeam
+    from tpuasr.decode.lm import train_ngram as jax_train_ngram
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.lm import train_ngram
+
+    lines = ["ALO MUNDO", "BOM DIA", "TUDO BEM", "OLA MUNDO", "BOM DIA MUNDO"]
+    calls = []
+    scan = beam_ops.beam_scan
+    monkeypatch.setattr(beam_ops, "beam_scan", lambda *a, **k: calls.append(1) or scan(*a, **k))
+    pkg, variables, eval_step = jax_side
+    kw = dict(beam_width=4, alpha=0.8, beta=1.0)
+    svc = TranscriptionService(
+        ckpt, ServeConfig(max_batch=2, warmup_seconds=(0.5, 1.5)),
+        decoder=DeviceBeamDecoder(pkg.alphabet, word_lm=train_ngram(lines, order=2), **kw),
+        device="cpu")
+    try:
+        assert len(calls) == 2
+        wave = _waves(6, [11000])[0]
+        text, offsets = svc.transcribe_wave(wave, timeout=120)
+        assert len(calls) == 3
+    finally:
+        svc.close()
+    bucket = JaxBucketSpec().bucket_samples(JaxBucketSpec().bucket_of(len(wave) / SR))
+    arr, lens = _batch([wave], bucket)
+    logits, out_lengths = eval_step(variables, jnp.asarray(arr), jnp.asarray(lens))
+    jax_dec = JaxBeam(pkg.alphabet, word_lm=jax_train_ngram(lines, order=2), impl="xla", **kw)
+    texts, offs = jax_dec.decode(logits, out_lengths, return_offsets=True)
+    assert (text, offsets) == (texts[0], np.asarray(offs[0]).tolist())

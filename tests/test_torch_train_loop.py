@@ -7,6 +7,9 @@ parameter and running statistic (the same f32 arithmetic in another
 order, over a few steps); the momentum traces, which sum gradients of
 any scale, within 1e-4 of each trace's largest element."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -102,19 +105,26 @@ def test_finetune_and_mid_epoch_resume(corpus, tmp_path):
 
 
 def test_epoch_without_validation_keeps_the_best_model(corpus, tmp_path):
-    """tpuasr/train/loop.py:523 writes model_path after an epoch whose
-    WER is NaN (no validation ran); the port keeps the best model."""
-    best = tmp_path / "best.ckpt"
-    assert train_cli.main(_argv(corpus, tmp_path / "a", 1, "--device", "cpu")) == 0
-    (tmp_path / "a" / "best.ckpt").rename(best)
-    before = best.read_bytes()
-    argv = ["--train-manifest", corpus["train"], *TINY, "--epochs", "2", "--checkpoint",
-            "--save-folder", str(tmp_path / "b"), "--model-path", str(best),
-            "--continue-from", str(tmp_path / "a" / "tpuasr_1.ckpt"), "--device", "cpu"]
-    assert train_cli.main(argv) == 0
-    assert (tmp_path / "b" / "tpuasr_2.ckpt").exists()
-    assert np.isnan(load_checkpoint(str(tmp_path / "b" / "tpuasr_2.ckpt")).wer_history[-1])
-    assert best.read_bytes() == before
+    """An epoch without validation (WER NaN) writes the same files in both
+    packages: its per-epoch checkpoint, and model_path as well, which
+    then holds that epoch's model rather than the best one
+    (tpuasr/train/loop.py:523)."""
+    assert jax_train_cli.main(_argv(corpus, tmp_path / "j1", 1)) == 0
+    start = tmp_path / "j1" / "tpuasr_1.ckpt"
+    for name, main, extra in (("j", jax_train_cli.main, []),
+                              ("p", train_cli.main, ["--device", "cpu"])):
+        out = tmp_path / name
+        out.mkdir()
+        shutil.copy(tmp_path / "j1" / "best.ckpt", out / "best.ckpt")
+        argv = ["--train-manifest", corpus["train"], *TINY, "--epochs", "2", "--checkpoint",
+                "--save-folder", str(out), "--model-path", str(out / "best.ckpt"),
+                "--continue-from", str(start), *extra]
+        assert main(argv) == 0
+    assert sorted(os.listdir(tmp_path / "p")) == sorted(os.listdir(tmp_path / "j"))
+    for f in ("tpuasr_2.ckpt", "best.ckpt"):
+        _assert_same_run(tmp_path / "p" / f, tmp_path / "j" / f)
+    best = load_checkpoint(str(tmp_path / "p" / "best.ckpt"))
+    assert best.epoch == 2 and np.isnan(best.wer_history[-1])
 
 
 @pytest.mark.parametrize("flag", [["--world-size", "2"], ["--mesh-tp", "2"],

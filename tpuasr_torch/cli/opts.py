@@ -1,13 +1,17 @@
 """Shared CLI flags (port of ``tpuasr/cli/opts.py``): audio, model,
-decoder and runtime flags, plus ``--device``. Only the greedy decoder
-is ported; the others parse and then raise."""
+decoder and runtime flags, plus ``--device``. The decoders are greedy,
+``beam`` (the host prefix beam with a word LM) and ``beam-device`` (K3,
+with a word or char LM); ``beam-native`` parses and then raises."""
 
 from __future__ import annotations
 
 import argparse
 
 from tpuasr_torch.audio.frontend import FrontendConfig
+from tpuasr_torch.decode.beam import DeviceBeamDecoder
+from tpuasr_torch.decode.beam_host import BeamCTCDecoder
 from tpuasr_torch.decode.greedy import GreedyDecoder
+from tpuasr_torch.decode.lm import load_lm
 from tpuasr_torch.device import DEVICES
 from tpuasr_torch.labels import Alphabet, load_labels
 from tpuasr_torch.model.ds2 import ModelConfig
@@ -67,7 +71,8 @@ def add_decoder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--decoder", default="greedy",
         choices=["greedy", "beam", "beam-device", "beam-native"],
-        help="greedy (the beam decoders are not ported yet)",
+        help="greedy | beam (host Python, word LM) | beam-device (the K3 "
+        "kernel on the GPU, word or char LM) | beam-native (not ported)",
     )
     p.add_argument("--lm-path", default=None,
                    help="ARPA or binary n-gram LM for beam shallow fusion")
@@ -77,7 +82,11 @@ def add_decoder_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cutoff-top-n", type=int, default=40)
     p.add_argument("--cutoff-prob", type=float, default=1.0)
     p.add_argument("--lm-workers", type=int, default=1)
-    p.add_argument("--device-lm-level", default="word", choices=["word", "char"])
+    p.add_argument(
+        "--device-lm-level", default="word", choices=["word", "char"],
+        help="beam-device only: fuse --lm-path as a word n-gram "
+        "(ctcdecode semantics, default) or a char n-gram",
+    )
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -98,8 +107,23 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
 
 
 def build_decoder(args, alphabet: Alphabet):
-    if args.decoder != "greedy":
+    if args.decoder == "beam":
+        return BeamCTCDecoder(alphabet, lm_path=args.lm_path, alpha=args.alpha,
+                              beta=args.beta, beam_width=args.beam_width,
+                              cutoff_top_n=args.cutoff_top_n,
+                              cutoff_prob=args.cutoff_prob)
+    if args.decoder == "beam-native":
         raise NotImplementedError(
-            f"--decoder {args.decoder} is not yet ported "
-            "(ROADMAP.md: K3 beam decoding and LM); use --decoder greedy")
+            "--decoder beam-native is not yet ported (ROADMAP.md: the C++ "
+            "host beam, decode/native.py); use --decoder beam or beam-device")
+    if args.decoder == "beam-device":
+        lm = load_lm(args.lm_path) if args.lm_path else None
+        level = getattr(args, "device_lm_level", "word")
+        return DeviceBeamDecoder(
+            alphabet, beam_width=args.beam_width,
+            char_lm=lm if level == "char" else None,
+            word_lm=lm if level == "word" else None,
+            alpha=args.alpha, beta=args.beta,
+            cutoff_top_n=args.cutoff_top_n, cutoff_prob=args.cutoff_prob,
+        )
     return GreedyDecoder(alphabet)

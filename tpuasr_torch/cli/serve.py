@@ -2,7 +2,8 @@
 
 Usage:
   python -m tpuasr_torch.cli.serve --model-path model.ckpt --port 8080 \
-      [--max-batch 32 --batch-window-ms 10] [--device cuda|cpu]
+      [--max-batch 32 --batch-window-ms 10] [--device cuda|cpu] \
+      [--decoder greedy|beam|beam-device --lm-path lm.arpa]
 
   curl -X POST --data-binary @utt.wav http://host:8080/transcribe
   -> {"text": "...", "offsets": [...]}

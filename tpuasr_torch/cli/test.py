@@ -1,0 +1,103 @@
+"""Batch evaluation over a test manifest (port of ``tpuasr/cli/test.py``).
+
+Runs the model over a manifest batch by batch, decodes (greedy, the host
+beam, or K3 with word or char LM fusion), and prints the reference's
+``Test Summary`` line of average WER and CER; ``--save-output`` dumps
+hypotheses and references as JSON lines, ``--timing`` the eval's wall
+time and utterances per second (of the last of ``--timing-repeats``
+passes, the warm one).
+
+Usage:
+  python -m tpuasr_torch.cli.test --model-path m.ckpt --test-manifest val.csv \\
+      [--decoder beam-device --lm-path lm.arpa --beam-width 10] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from tpuasr_torch.cli.opts import add_decoder_args, add_runtime_args, build_decoder
+from tpuasr_torch.compat.weights import model_from_variables
+from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+from tpuasr_torch.data.loader import AudioBatchLoader
+from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+from tpuasr_torch.decode.metrics import ErrorRateMeter
+from tpuasr_torch.device import resolve_device
+from tpuasr_torch.train.checkpoint import load_checkpoint
+from tpuasr_torch.train.step import make_eval_step
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="tpuasr_torch test (batch eval)")
+    p.add_argument("--model-path", required=True)
+    p.add_argument("--test-manifest", required=True)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--num-workers", type=int, default=2,
+                   help="host prefetch depth (reference: dataloader workers)")
+    p.add_argument("--device-resident-audio", action="store_true",
+                   help="pack the eval corpus into device memory once (not ported yet)")
+    p.add_argument("--transfer-dtype", default="int16", choices=["int16", "float32"])
+    p.add_argument("--save-output", default=None,
+                   help="write per-utterance hyp/ref JSONL here")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--timing", action="store_true",
+                   help="print eval wall time and utt/s after the summary")
+    p.add_argument("--timing-repeats", type=int, default=1,
+                   help="run the eval N times and report the LAST pass")
+    add_decoder_args(p)
+    add_runtime_args(p)
+    args = p.parse_args(argv)
+
+    if args.device_resident_audio:
+        raise NotImplementedError(
+            "--device-resident-audio is not yet ported (ROADMAP.md §1.2: "
+            "augmentation and the device-resident corpus)")
+    device = resolve_device(args.device)
+    pkg = load_checkpoint(args.model_path)
+    alphabet = pkg.alphabet
+    model = model_from_variables(pkg.variables, pkg.model_config, device)
+    eval_step = make_eval_step(model, pkg.frontend_config)
+    decoder = build_decoder(args, alphabet)
+
+    entries = order_and_prune(read_manifest(args.test_manifest))
+    plan = make_buckets(entries, args.batch_size,
+                        BucketSpec(sample_rate=pkg.frontend_config.sample_rate),
+                        shuffle=False)
+    loader = AudioBatchLoader(plan, alphabet, sample_rate=pkg.frontend_config.sample_rate,
+                              prefetch=args.num_workers, transfer_dtype=args.transfer_dtype)
+
+    out_f = open(args.save_output, "w") if args.save_output else None
+    for _ in range(max(args.timing_repeats, 1)):
+        meter = ErrorRateMeter()
+        t_eval0 = time.time()
+        for batch in loader.epoch(0):
+            logits, out_lengths = eval_step(batch.waves, batch.wave_lengths)
+            hyps = decoder.decode(logits, out_lengths)
+            for j, (hyp, ref) in enumerate(zip(hyps, batch.texts)):
+                if not batch.valid[j]:
+                    continue
+                meter.update(hyp, ref)
+                if args.verbose:
+                    print(f"Ref: {ref}\nHyp: {hyp}\n")
+                if out_f:
+                    out_f.write(json.dumps({"ref": ref, "hyp": hyp}, ensure_ascii=False) + "\n")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.time() - t_eval0
+    if out_f:
+        out_f.close()
+
+    print(f"Test Summary \tAverage WER {meter.wer:.3f}\tAverage CER {meter.cer:.3f}")
+    if args.timing:
+        print(f"Timing \t{meter.n_utts} utts in {dt:.2f}s "
+              f"= {meter.n_utts / max(dt, 1e-9):.1f} utt/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,7 +2,11 @@
 
 Usage:
   python -m tpuasr_torch.cli.transcribe --model-path m.ckpt \
-      --audio-path x.wav [--offsets] [--device cuda|cpu]
+      --audio-path x.wav [--offsets] [--device cuda|cpu] \
+      [--decoder beam-device --lm-path lm.arpa --n-best 3]
+
+Audio past the bucket ladder decodes long-form (overlapping chunks, host
+decode: the host beam for every beam decoder), printing the best text.
 """
 
 from __future__ import annotations
@@ -52,9 +56,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "--streaming is not yet ported (ROADMAP.md: unidirectional, "
             "Lookahead and streaming)")
-    if args.n_best > 1:
-        print("--n-best requires a beam decoder", file=sys.stderr)
-        return 2
     device = resolve_device(args.device)
     pkg = load_checkpoint(args.model_path)
     alphabet = pkg.alphabet
@@ -71,14 +72,27 @@ def main(argv=None) -> int:
             overlap_seconds=args.chunk_overlap,
             spf=samples_per_frame(pkg.frontend_config),
         )
-    else:
-        padded, n = pad_to_ladder(np.asarray(wave, np.float32), spec)
-        logits, out_lengths = eval_step(padded[None, :], np.array([n], np.int32))
-        texts, offs = decoder.decode(logits, out_lengths, return_offsets=True)
-        text, offsets = texts[0], offs[0]
-    print(text)
+        print(text)
+        if args.offsets:
+            print(" ".join(map(str, offsets)))
+        return 0
+
+    padded, n = pad_to_ladder(np.asarray(wave, np.float32), spec)
+    logits, out_lengths = eval_step(padded[None, :], np.array([n], np.int32))
+    if args.n_best > 1:
+        if not hasattr(decoder, "decode_nbest"):
+            print("--n-best requires a beam decoder", file=sys.stderr)
+            return 2
+        for text, score, frames in decoder.decode_nbest(
+                logits, out_lengths, n_best=args.n_best)[0]:
+            print(f"{score:.4f}\t{text}")
+            if args.offsets:
+                print("\t" + " ".join(map(str, frames)))
+        return 0
+    texts, offsets = decoder.decode(logits, out_lengths, return_offsets=True)
+    print(texts[0])
     if args.offsets:
-        print(" ".join(map(str, offsets)))
+        print(" ".join(map(str, offsets[0])))
     return 0
 
 

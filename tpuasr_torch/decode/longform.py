@@ -3,7 +3,9 @@
 Every utterance is padded up to the static bucket ladder
 (``pad_to_ladder``); audio longer than the last bucket is decoded as
 overlapping ladder-sized chunks whose center-cut logits are stitched on
-host (``longform_logits``) and decoded by a host decoder. Each interior
+host (``longform_logits``) and decoded by a host decoder: the numpy
+greedy collapse, or the host prefix beam with word-LM fusion for every
+beam decoder. Each interior
 boundary is cut at the overlap's midpoint, so every output frame comes
 from a chunk where it sits at least overlap/2 from a chunk edge. The
 chunks share the serving batch shapes, so long audio adds no new
@@ -15,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 
 from tpuasr_torch.data.buckets import BucketSpec
+from tpuasr_torch.decode.beam import DeviceBeamDecoder
+from tpuasr_torch.decode.beam_host import BeamCTCDecoder, beam_init, beam_results, beam_step
 from tpuasr_torch.decode.greedy import GreedyDecoder
 from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import CONV_SPECS
@@ -135,12 +139,62 @@ def greedy_decode_host(logits: np.ndarray, alphabet: Alphabet):
     return alphabet.decode(ids[frames]), frames
 
 
+def _log_softmax_np(x: np.ndarray) -> np.ndarray:
+    m = x.max(axis=-1, keepdims=True)
+    e = np.exp(x - m)
+    return x - m - np.log(e.sum(axis=-1, keepdims=True))
+
+
+def _host_beam_with_offsets(logprobs: np.ndarray, alphabet: Alphabet,
+                            **kw) -> tuple[str, np.ndarray]:
+    """Host prefix-beam over assembled (T, C) logprobs returning
+    (stripped text, per-char emission frames)."""
+    beams = beam_init()
+    for t in range(logprobs.shape[0]):
+        beams = beam_step(beams, logprobs[t], alphabet, t=t, **kw)
+    res = beam_results(beams, alphabet, lm=kw.get("lm"),
+                       alpha=kw.get("alpha", 0.8), beta=kw.get("beta", 1.0),
+                       with_offsets=True)
+    if not res:
+        return "", np.array([], np.int64)
+    text, _, frames = res[0]
+    lpad = len(text) - len(text.lstrip())
+    rpad = len(text) - len(text.rstrip())
+    return text.strip(), (frames[lpad: len(frames) - rpad]
+                          if rpad else frames[lpad:])
+
+
 def host_decode(decoder, logits: np.ndarray, alphabet: Alphabet):
     """Decode assembled long-form logits (T, C) with the host analogue
-    of the configured decoder (greedy; the beam decoders are not ported
-    yet). Returns (text, per-char frame offsets)."""
+    of the configured decoder. Returns (text, per-char frame offsets)
+    for greedy and every beam decoder: the device beam's long-form
+    analogue is the host beam it is tested against."""
     if decoder is None or isinstance(decoder, GreedyDecoder):
         return greedy_decode_host(logits, alphabet)
+
+    logprobs = _log_softmax_np(logits.astype(np.float64)).astype(np.float32)
+    if isinstance(decoder, BeamCTCDecoder):
+        return _host_beam_with_offsets(
+            logprobs, alphabet, beam_width=decoder.beam_width,
+            lm=decoder.lm, alpha=decoder.alpha, beta=decoder.beta,
+            cutoff_top_n=decoder.cutoff_top_n,
+            cutoff_prob=decoder.cutoff_prob,
+        )
+    if isinstance(decoder, DeviceBeamDecoder):
+        if decoder._lm_tables is not None:
+            raise ValueError(
+                "long-form decode with a char-level device LM is not "
+                "supported; use --device-lm-level word, --decoder beam, "
+                "or greedy for long audio"
+            )
+        return _host_beam_with_offsets(
+            logprobs, alphabet, beam_width=decoder.cfg.beam_width,
+            lm=decoder.word_lm,
+            alpha=decoder.cfg.alpha, beta=decoder.cfg.beta,
+            cutoff_top_n=decoder.cfg.cutoff_top_n,
+            cutoff_prob=decoder.cfg.cutoff_prob,
+            prune_logp=decoder.cfg.prune_logp,
+        )
     raise TypeError(f"no host long-form path for {type(decoder).__name__}")
 
 

@@ -4,8 +4,9 @@ Requests (WAV bytes or waves) land in a queue; one device worker drains
 up to ``max_batch`` of them within ``batch_window_ms``, pads the batch
 to ``max_batch`` rows and to a static duration bucket
 (``tpuasr_torch.data.buckets.BucketSpec``), runs the eval step (frontend
-+ DS2 with the Hopper BiGRU kernel) and decodes greedily. Padding rows
-have length 0. Audio beyond ``max_seconds`` follows ``long_audio``:
++ DS2 with the Hopper BiGRU kernel) and decodes with the configured
+decoder: greedy by default, the host beam, or ``DeviceBeamDecoder``
+(one K3 launch per batch). Padding rows have length 0. Audio beyond ``max_seconds`` follows ``long_audio``:
 chunked long-form decode, reject, or explicit truncation.
 
 HTTP wrapper (``make_http_server``): POST /transcribe with a WAV body ->
@@ -75,7 +76,8 @@ class TranscriptionService:
     def warmup(self, seconds: float) -> None:
         """Run the (bucket, max_batch) shape a request of this duration
         hits — eval forward and decoder — before traffic (builds the
-        CUDA kernel and lets cuDNN pick its algorithms)."""
+        CUDA kernels, K3 too with a device beam decoder, and lets cuDNN
+        pick its algorithms)."""
         cap = int(self.cfg.max_seconds * self.spec.sample_rate)
         n = min(int(seconds * self.spec.sample_rate), cap)
         l_bucket = self.spec.bucket_samples(

@@ -8,10 +8,9 @@ tracking, ``--continue-from`` exact resume (mid-epoch too) and
 ``--finetune`` (weights only). Checkpoints are ``.tpuasr`` files that
 the JAX package reads and resumes, and vice versa.
 
-Divergence from the JAX package, on purpose: ``model_path`` is written
-only when a validation ran and its WER is no worse than the best so far
-(``tpuasr/train/loop.py:523`` also writes it after an epoch without
-validation, whose WER is NaN, overwriting the best model).
+``model_path`` is written as the JAX package writes it: after a
+validation whose WER is no worse than the best so far, and also after an
+epoch without validation, whose WER is NaN.
 """
 
 from __future__ import annotations
@@ -225,8 +224,9 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
             pkg = make_pkg(epoch + 1)
             if loop_cfg.save_folder and loop_cfg.checkpoint_per_epoch:
                 save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_{epoch + 1}.ckpt", pkg)
-            if loop_cfg.model_path and not np.isnan(wer) and wer <= best_wer:
-                best_wer = pkg.best_wer = wer
+            if loop_cfg.model_path and (np.isnan(wer) or wer <= best_wer):
+                if not np.isnan(wer):
+                    best_wer = pkg.best_wer = wer
                 save_checkpoint(loop_cfg.model_path, pkg)
     except _PreemptionExit:
         pkg = make_pkg(epoch, epoch_done)
