@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of tpuasr_torch: the training, beam-search evaluation
-and batch serving paths on one card.
+and batch serving paths on one card, for the BiGRU flagship and for its
+BiLSTM and gate-major BiGRU variants.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -21,7 +22,14 @@ non-zero without printing a result:
                (cuDNN nn.GRU forward, its backward, F.ctc_loss; timed
                only as yardsticks) beside the bound computed from the
                shapes: K1f (BiGRU forward), K1b (BiGRU backward), K2a
-               and K2b (CTC alpha and beta).
+               and K2b (CTC alpha and beta). Then K4f and K4b (BiLSTM
+               forward, ys and cs, and backward) and K5f and K5b (the
+               gate-major BiGRU) the same way at B=32, H=800, D=2, bf16,
+               T'=251 and 826, and at the edges T=1 with B=1, D=1, f32
+               and ragged tiles (the flagship cases hold a length-0
+               row), each also through its whole autograd function; K5
+               must equal K1 bit for bit on the relaid-out inputs; the
+               yardsticks are cuDNN nn.LSTM and nn.GRU.
   4. train   — the training main path: a synthetic 5 s corpus (64
                training and 32 validation utterances) and
                tpuasr_torch.cli.train.main on the full-width flagship
@@ -67,8 +75,26 @@ non-zero without printing a result:
                Then one lone request's latency and a time split of one
                service batch (frontend, convs, RNN layers, GRU kernel,
                head, decode).
-  8. a {"kernels": [...]} line, then the nvidia-smi line, then the last
-     line {"ok": true, "device": {...}}.
+  8. lstm, gru2 — the BiLSTM (``--rnn-type lstm``) and the gate-major
+               BiGRU (``--rnn-impl pallas2``) at the flagship's width
+               (5 layers of 800, bf16, batch 32) through
+               tpuasr_torch.cli.train.main on phase 4's corpus: one
+               epoch (2 steps and a validation), every step finite, the
+               path's kernels and K2a/K2b launched and no other RNN
+               kernel (the lstm path launches K4f/K4b and not K1; the
+               gru2 path K5f/K5b and not K1f/K1b); one train step,
+               kernels vs plain; the train step's time split; then the
+               written checkpoint served as in phase 7 (four concurrent
+               1-5 s requests and a lone one, the path's forward kernel
+               launched, one batch vs the plain loop) with its batch's
+               time split.
+  9. a {"kernels": [...]} line (all nine kernels, launches by path),
+     then the nvidia-smi line, then the last line
+     {"ok": true, "device": {...}}.
+
+Which kernel runs the time loop (tpuasr_torch/model/ds2.py): a GRU
+runs K1 under rnn_impl scan and pallas and K5 under pallas2; an LSTM
+runs K4 under every impl.
 
 Tolerances. BiGRU kernel vs plain: f32 max-abs <= 1e-4 (both sum the
 same f32 products in different orders); bf16 max-abs <= 3e-2 and
@@ -97,6 +123,14 @@ relative norm error <= 5e-2, because bf16 activations (h rounded every
 step, the kernel and the plain loop summing in different orders) move
 by ulps of 2**-8 that five layers, a 251-step recurrence and the
 backward carry on.
+K4 (BiLSTM) vs plain: K1's tolerances for ys, cs and dhg and for the
+whole autograd function, for K1's reasons: h is carried rounded to
+bf16 every step (c in f32, emitted rounded) and the kernel sums the
+same f32 products in another order, so an ulp that moves is carried on;
+the backward rounds only its emitted dhg. K5 (gate-major BiGRU) vs
+plain: K1's tolerances; against K1 on the relaid-out inputs: equal bit
+for bit (one compiled body with other strides). The lstm and gru2 paths
+hold their train step and service batch to the flagship's bounds.
 K3 vs plain: parents and chars equal, scores within 1e-5 relative, best
 texts equal; both run the same f32 operations in the same order with
 the card's expf/log1pf (an absorbed sum has at most one term, since the
@@ -158,16 +192,20 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 
 # ------------------------------------------------------------------ kernel
 
-def gru_case(t, b, h, nd, dtype, seed, device):
-    """Seeded inputs at model-like scales; ragged lengths with a 0 row."""
+def gru_case(t, b, h, nd, dtype, seed, device, n_gates=3, lengths=None):
+    """Seeded inputs at model-like scales (``n_gates=4``: the LSTM's);
+    ragged lengths with a 0 row unless ``lengths`` is given."""
     import torch
 
     rng = np.random.RandomState(seed)
-    lengths = rng.randint(1, t + 1, size=b)
-    lengths[0], lengths[min(5, b - 1)] = t, 0
-    xg = rng.standard_normal((t, nd, b, 3 * h)) * 0.5
-    w_h = rng.standard_normal((nd, h, 3 * h)) / np.sqrt(h)
-    b_h = rng.standard_normal((nd, 3 * h)) * 0.1
+    if lengths is None:
+        lengths = rng.randint(1, t + 1, size=b)
+        lengths[0], lengths[min(5, b - 1)] = t, 0
+    lengths = np.asarray(lengths)
+    g = n_gates
+    xg = rng.standard_normal((t, nd, b, g * h)) * 0.5
+    w_h = rng.standard_normal((nd, h, g * h)) / np.sqrt(h)
+    b_h = rng.standard_normal((nd, g * h)) * 0.1
     m_f = np.arange(t)[:, None] < lengths[None, :]
     m_b = np.arange(t)[:, None] >= (t - lengths)[None, :]
     mask = np.stack([m_f, m_b][:nd], axis=1)
@@ -179,37 +217,117 @@ def gru_case(t, b, h, nd, dtype, seed, device):
             dev(mask, torch.float32))
 
 
-def bigru_bound(t, b, h, nd, itemsize):
-    flops = 2.0 * nd * t * b * h * 3 * h  # h @ w_h every step
-    nbytes = (t * nd * b * 3 * h * itemsize + t * nd * b * h * itemsize
-              + nd * h * 3 * h * itemsize + nd * 3 * h * 4 + t * nd * b * 4)
+def rnn_bound(t, b, h, nd, itemsize, n_gates=3, backward=False):
+    """The least time of a fused RNN time loop at these shapes: K1f/K5f
+    (GRU, n_gates 3) and K4f (LSTM, 4) do h @ w_h every step; K1b/K5b
+    and K4b recompute it and then take dhg @ w_h^T (twice the
+    operations). Bytes: xg, the per-step state inputs of the backward
+    (GRU h_prev, dy; LSTM h_prev, c_prev, cs, dy), the outputs (ys; the
+    LSTM's ys and cs; the backward's 4H gate gradients), w_h, b_h, mask."""
+    g = n_gates
+    flops = (2 if backward else 1) * 2.0 * nd * t * b * h * g * h
+    states = (4 if g == 4 else 2) if backward else 0
+    outs = 4 * h if backward else (2 * h if g == 4 else h)
+    nbytes = (t * nd * b * (g * h + states * h + outs) * itemsize
+              + nd * h * g * h * itemsize + nd * g * h * 4 + t * nd * b * 4)
     by_ops, by_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
 
-def cudnn_gru_ms(xg, w_h, b_h, iters):
-    """nn.GRU(bidirectional) at full lengths with the same recurrent
-    weights; it also runs its own input projection (x @ W_ih), fed here
-    with an H-wide input. A yardstick only: the port never calls it."""
+def cudnn_rnn(xg, w_h, b_h, n_gates=3):
+    """nn.GRU (n_gates 3) or nn.LSTM (4), bidirectional, with the same
+    recurrent weights (PyTorch's gate orders are the port's) and its
+    input of an H-wide ``x``; it also runs its own input projection
+    (x @ W_ih). A yardstick only: the port never calls it."""
     import torch
 
-    t, nd, b, g3 = xg.shape
-    h = g3 // 3
-    gru = torch.nn.GRU(h, h, bidirectional=nd == 2).to(device=xg.device, dtype=xg.dtype)
+    t, nd, b, gh = xg.shape
+    h = gh // n_gates
+    cls = torch.nn.LSTM if n_gates == 4 else torch.nn.GRU
+    rnn = cls(h, h, bidirectional=nd == 2).to(device=xg.device, dtype=xg.dtype)
     with torch.no_grad():
         for d in range(nd):
             sfx = "_reverse" if d else ""
-            getattr(gru, "weight_hh_l0" + sfx).copy_(w_h[d].t())
-            getattr(gru, "bias_hh_l0" + sfx).copy_(b_h[d])
-            getattr(gru, "bias_ih_l0" + sfx).zero_()
-    gru.flatten_parameters()  # cuDNN's packed weights, as nn.GRU keeps them
-    x = xg[:, 0, :, :h].contiguous()
+            getattr(rnn, "weight_hh_l0" + sfx).copy_(w_h[d].t())
+            getattr(rnn, "bias_hh_l0" + sfx).copy_(b_h[d])
+            getattr(rnn, "bias_ih_l0" + sfx).zero_()
+    rnn.flatten_parameters()  # cuDNN's packed weights, as nn.GRU/nn.LSTM keep them
+    return rnn, xg[:, 0, :, :h].contiguous()
+
+
+def cudnn_rnn_ms(xg, w_h, b_h, iters, n_gates=3):
+    """Forward time of ``cudnn_rnn`` at full lengths."""
+    import torch
+
+    rnn, x = cudnn_rnn(xg, w_h, b_h, n_gates)
 
     @torch.inference_mode()
     def run():
-        gru(x)
+        rnn(x)
 
     return time_ms(run, iters)
+
+
+def cudnn_rnn_bwd_ms(xg, w_h, b_h, iters, n_gates=3):
+    """Backward time of ``cudnn_rnn`` at full lengths: forward+backward
+    minus forward, both timed."""
+    import torch
+
+    rnn, x = cudnn_rnn(xg, w_h, b_h, n_gates)
+    x = x.requires_grad_()
+    t, nd, b, _ = xg.shape
+    dy = torch.randn(t, b, nd * x.shape[-1], device=xg.device, dtype=xg.dtype)
+
+    def fwd():
+        with torch.no_grad():
+            rnn(x)
+
+    def fwd_bwd():
+        y, _ = rnn(x)
+        y.backward(dy)
+
+    return time_ms(fwd_bwd, iters) - time_ms(fwd, iters)
+
+
+def check_fwd(name, got, want, dtype) -> dict:
+    """The BiGRU forward tolerances (module docstring), for K1f, K4f and
+    K5f; ``dtype`` by name."""
+    diff = (got.float() - want.float()).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    if dtype == "float32":
+        check(err <= 1e-4, f"{name} f32 max-abs {err}")
+    else:
+        check(err <= 3e-2 and mean <= 1e-3, f"{name} bf16 {err} {mean}")
+    return {"max_abs_err": err, "mean_abs_err": mean}
+
+
+def check_bwd(name, got, want, dtype) -> dict:
+    """The BiGRU backward tolerances (module docstring), for K1b, K4b and
+    K5b, relative to the largest |want|."""
+    want = want.float()
+    scale = want.abs().max().item()
+    diff = (got.float() - want).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    if dtype == "float32":
+        check(err <= 1e-4 * scale, f"{name} f32 {err} of {scale}")
+    else:
+        check(err <= 2e-2 * scale and mean <= 1e-3 * scale, f"{name} bf16 {err} {mean} of {scale}")
+    return {"max_abs_err": err, "mean_abs_err": mean, "abs_max": scale}
+
+
+def function_vs_plain(fn, xg, w_h, b_h, mask, dy, dtype) -> dict:
+    """An autograd function's gradients through the kernels against
+    those through the plain versions (relative norm errors)."""
+    grads = []
+    for plain in (False, True):
+        leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
+        with plain_versions(plain):
+            (fn(*leaves, mask).float() * dy.float()).sum().backward()
+        grads.append([a.grad for a in leaves])
+    errs = {k: rel_norm_err(a, b_) for k, a, b_ in zip(("dxg", "dw", "db"), *grads)}
+    check(max(errs.values()) <= (1e-4 if dtype == "float32" else 2e-2),
+          f"{fn} {dtype} vs plain: {errs}")
+    return errs
 
 
 def phase_kernel():
@@ -229,27 +347,21 @@ def phase_kernel():
         args = gru_case(t, b, h, nd, dtype, seed=i, device=cuda)
         ys = bigru_forward(*args)
         torch.cuda.synchronize()
-        diff = (ys.float() - bigru_reference(*args).float()).abs()
-        err, mean = diff.max().item(), diff.mean().item()
-        if dtype == torch.float32:
-            check(err <= 1e-4, f"bigru {name} f32 max-abs {err}")
-        else:
-            check(err <= 3e-2 and mean <= 1e-3, f"bigru {name} bf16 {err} {mean}")
-        results.append({"case": name, "shape": [t, nd, b, h],
-                        "dtype": str(dtype).split(".")[1],
-                        "max_abs_err": err, "mean_abs_err": mean})
+        dt = str(dtype).split(".")[1]
+        results.append({"case": name, "shape": [t, nd, b, h], "dtype": dt,
+                        **check_fwd(f"bigru {name}", ys, bigru_reference(*args), dt)})
         emit("kernel", kernel="bigru_fwd", **results[-1])
 
     timings = []
     for t in (251, 826):  # the 5 s and 16.5 s serving buckets
         b, h, nd = 32, 800, 2
         args = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda)
-        bound_ms, bound_by = bigru_bound(t, b, h, nd, 2)
+        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2)
         timings.append({
             "shape": [t, nd, b, h], "dtype": "bfloat16",
             "ms": time_ms(lambda: bigru_forward(*args), iters=10, warmup=2),
             "plain_ms": time_ms(lambda: bigru_reference(*args), iters=2),
-            "library_ms": cudnn_gru_ms(args[0], args[1], args[2], iters=10),
+            "library_ms": cudnn_rnn_ms(args[0], args[1], args[2], iters=10),
             "bound_ms": bound_ms, "bound_by": bound_by})
         emit("kernel_time", kernel="bigru_fwd", **timings[-1])
     return results[0], timings
@@ -261,12 +373,18 @@ def plain_versions(on: bool = True):
     its plain PyTorch version (no-op when ``on`` is False)."""
     import tpuasr_torch.ops.ctc as ctc_mod
     import tpuasr_torch.ops.gru as gru_mod
+    import tpuasr_torch.ops.gru2 as gru2_mod
+    import tpuasr_torch.ops.lstm as lstm_mod
 
     if not on:
         yield
         return
     with mock.patch.multiple(gru_mod, bigru_forward=gru_mod.bigru_reference,
                              bigru_backward=gru_mod.bigru_backward_reference), \
+            mock.patch.multiple(gru2_mod, bigru2_forward=gru2_mod.bigru2_reference,
+                                bigru2_backward=gru2_mod.bigru2_backward_reference), \
+            mock.patch.multiple(lstm_mod, bilstm_forward=lstm_mod.bilstm_reference,
+                                bilstm_backward=lstm_mod.bilstm_backward_reference), \
             mock.patch.multiple(ctc_mod, ctc_alpha=ctc_mod.ctc_alpha_reference,
                                 ctc_beta=ctc_mod.ctc_beta_reference):
         yield
@@ -275,45 +393,6 @@ def plain_versions(on: bool = True):
 def rel_norm_err(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-
-
-def bigru_bwd_bound(t, b, h, nd, itemsize):
-    flops = 2 * 2.0 * nd * t * b * h * 3 * h  # hg recomputed, then dhg @ w_h^T
-    nbytes = (t * nd * b * 3 * h * itemsize  # xg
-              + 2 * t * nd * b * h * itemsize  # h_prev, dy
-              + t * nd * b * 4 * h * itemsize  # packed
-              + nd * h * 3 * h * itemsize + nd * 3 * h * 4 + t * nd * b * 4)
-    by_ops, by_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
-
-
-def cudnn_gru_bwd_ms(xg, w_h, b_h, iters):
-    """Backward of cuDNN nn.GRU(bidirectional) at full lengths with the
-    same recurrent weights: forward+backward minus forward, both timed.
-    A yardstick only: the port never calls it."""
-    import torch
-
-    t, nd, b, g3 = xg.shape
-    h = g3 // 3
-    gru = torch.nn.GRU(h, h, bidirectional=nd == 2).to(device=xg.device, dtype=xg.dtype)
-    with torch.no_grad():
-        for d in range(nd):
-            sfx = "_reverse" if d else ""
-            getattr(gru, "weight_hh_l0" + sfx).copy_(w_h[d].t())
-            getattr(gru, "bias_hh_l0" + sfx).copy_(b_h[d])
-    gru.flatten_parameters()
-    x = xg[:, 0, :, :h].contiguous().requires_grad_()
-    dy = torch.randn(t, b, nd * h, device=xg.device, dtype=xg.dtype)
-
-    def fwd():
-        with torch.no_grad():
-            gru(x)
-
-    def fwd_bwd():
-        y, _ = gru(x)
-        y.backward(dy)
-
-    return time_ms(fwd_bwd, iters) - time_ms(fwd, iters)
 
 
 def phase_kernel_bwd():
@@ -326,6 +405,7 @@ def phase_kernel_bwd():
         bigru_backward,
         bigru_backward_reference,
         bigru_reference,
+        shift_time,
     )
 
     cuda = torch.device("cuda")
@@ -337,54 +417,192 @@ def phase_kernel_bwd():
     ]
     for i, (name, t, b, h, nd, dtype) in enumerate(cases):
         xg, w_h, b_h, mask = gru_case(t, b, h, nd, dtype, seed=20 + i, device=cuda)
-        ys = bigru_reference(xg, w_h, b_h, mask)
-        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).contiguous()
+        h_prev = shift_time(bigru_reference(xg, w_h, b_h, mask))
         gen = torch.Generator(device=cuda).manual_seed(i)
-        dy = torch.randn(ys.shape, generator=gen, device=cuda).to(dtype)
+        dy = torch.randn(h_prev.shape, generator=gen, device=cuda).to(dtype)
         packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)
         torch.cuda.synchronize()
-        want = bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy).float()
-        scale = want.abs().max().item()
-        diff = (packed.float() - want).abs()
-        err, mean = diff.max().item(), diff.mean().item()
-        # the whole function: kernels vs plain versions
-        grads = []
-        for plain in (False, True):
-            leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
-            with plain_versions(plain):
-                (BiGRUFunction.apply(*leaves, mask).float() * dy.float()).sum().backward()
-            grads.append([a.grad for a in leaves])
-        fn_err = {k: rel_norm_err(a, b_) for k, a, b_ in zip(("dxg", "dw", "db"), *grads)}
-        row = {"case": name, "shape": [t, nd, b, h], "dtype": str(dtype).split(".")[1],
-               "max_abs_err": err, "mean_abs_err": mean, "packed_abs_max": scale,
-               "function_rel_norm_err": fn_err}
+        dt = str(dtype).split(".")[1]
+        row = {"case": name, "shape": [t, nd, b, h], "dtype": dt,
+               **check_bwd(f"bigru_bwd {name}", packed,
+                           bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy), dt),
+               # the whole function: kernels vs plain versions
+               "function_rel_norm_err": function_vs_plain(BiGRUFunction.apply, xg, w_h, b_h,
+                                                          mask, dy, dt)}
         emit("kernel", kernel="bigru_bwd", **row)
-        if dtype == torch.float32:
-            check(err <= 1e-4 * scale, f"bigru_bwd {name} f32 {err} of {scale}")
-            check(max(fn_err.values()) <= 1e-4, f"BiGRUFunction {name} f32 {fn_err}")
-        else:
-            check(err <= 2e-2 * scale and mean <= 1e-3 * scale,
-                  f"bigru_bwd {name} bf16 {err} {mean} of {scale}")
-            check(max(fn_err.values()) <= 2e-2, f"BiGRUFunction {name} bf16 {fn_err}")
         results.append(row)
 
     timings = []
     for t in (251, 826):
         b, h, nd = 32, 800, 2
         xg, w_h, b_h, mask = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda)
-        ys = bigru_reference(xg, w_h, b_h, mask)
-        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]]).contiguous()
-        dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
+        h_prev = shift_time(bigru_reference(xg, w_h, b_h, mask))
+        dy = (0.1 * torch.randn(h_prev.shape, device=cuda)).to(torch.bfloat16)
         args = (xg, w_h, b_h, mask, h_prev, dy)
-        bound_ms, bound_by = bigru_bwd_bound(t, b, h, nd, 2)
+        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, backward=True)
         timings.append({
             "shape": [t, nd, b, h], "dtype": "bfloat16",
             "ms": time_ms(lambda: bigru_backward(*args), iters=10, warmup=2),
             "plain_ms": time_ms(lambda: bigru_backward_reference(*args), iters=2),
-            "library_ms": cudnn_gru_bwd_ms(xg, w_h, b_h, iters=10),
+            "library_ms": cudnn_rnn_bwd_ms(xg, w_h, b_h, iters=10),
             "bound_ms": bound_ms, "bound_by": bound_by})
         emit("kernel_time", kernel="bigru_bwd", **timings[-1])
     return results[0], timings
+
+
+# (name, T, B, H, D, dtype, lengths): the flagship at the 5 s and 16.5 s
+# buckets, and the edges (T=1 and B=1, D=1, f32, ragged tiles; the
+# flagship cases hold a length-0 row)
+NEW_RNN_CASES = [
+    ("flagship-5s-bf16", 251, 32, 800, 2, "bfloat16", None),
+    ("flagship-16.5s-bf16", 826, 32, 800, 2, "bfloat16", None),
+    ("T1-B1-f32", 1, 1, 800, 2, "float32", [1]),
+    ("T7-D1-f32", 7, 5, 800, 1, "float32", None),
+    ("ragged-tiles-f32", 33, 9, 100, 2, "float32", None),
+]
+
+
+# (T, B, H) of the kernels' times, D=2, bf16: the 5 s and 16.5 s buckets
+TIMING_SHAPES = ((251, 32, 800), (826, 32, 800))
+
+
+def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_SHAPES):
+    """K4f (ys and cs) and K4b (dhg) against their plain loops, the whole
+    BiLSTMFunction against plain forward + backward, then times beside
+    cuDNN's nn.LSTM and the bounds. ``device``, ``cases`` and
+    ``timing_shapes`` other than the defaults only rehearse the phase on
+    the CPU."""
+    import torch
+
+    from tpuasr_torch.ops.gru import shift_time
+    from tpuasr_torch.ops.lstm import (
+        BiLSTMFunction,
+        bilstm_backward,
+        bilstm_backward_reference,
+        bilstm_forward,
+        bilstm_reference,
+    )
+
+    cuda = torch.device(device)
+    rows = []
+    for i, (name, t, b, h, nd, dt, lengths) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        args = gru_case(t, b, h, nd, dtype, seed=40 + i, device=cuda, n_gates=4,
+                        lengths=lengths)
+        ys, cs = bilstm_forward(*args)
+        torch.cuda.synchronize()
+        ys_p, cs_p = bilstm_reference(*args)
+        fwd = check_fwd(f"bilstm_fwd {name} ys", ys, ys_p, dt)
+        fwd_c = check_fwd(f"bilstm_fwd {name} cs", cs, cs_p, dt)
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        dy = torch.randn(ys.shape, generator=gen, device=cuda).to(dtype)
+        bwd_args = (*args, shift_time(ys_p), shift_time(cs_p), cs_p, dy)
+        dhg = bilstm_backward(*bwd_args)
+        torch.cuda.synchronize()
+        bwd = check_bwd(f"bilstm_bwd {name}", dhg, bilstm_backward_reference(*bwd_args), dt)
+        fn_err = function_vs_plain(BiLSTMFunction.apply, *args, dy, dt)
+        rows.append({"case": name, "shape": [t, nd, b, h], "dtype": dt, "ys": fwd, "cs": fwd_c,
+                     "dhg": bwd, "function_rel_norm_err": fn_err})
+        emit("kernel", kernel="bilstm", **rows[-1])
+
+    timings = {"bilstm_fwd": [], "bilstm_bwd": []}
+    for t, b, h in timing_shapes:
+        nd = 2
+        args = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda, n_gates=4)
+        ys, cs = bilstm_reference(*args)
+        dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
+        bwd_args = (*args, shift_time(ys), shift_time(cs), cs, dy)
+        for kernel, fn, plain, lib, back in (
+                ("bilstm_fwd", bilstm_forward, bilstm_reference, cudnn_rnn_ms, False),
+                ("bilstm_bwd", bilstm_backward, bilstm_backward_reference, cudnn_rnn_bwd_ms,
+                 True)):
+            a = bwd_args if back else args
+            bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=4, backward=back)
+            timings[kernel].append({
+                "shape": [t, nd, b, h], "dtype": "bfloat16",
+                "ms": time_ms(lambda: fn(*a), iters=10, warmup=2),
+                "plain_ms": time_ms(lambda: plain(*a), iters=2),
+                "library_ms": lib(*args[:3], iters=10, n_gates=4),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            emit("kernel_time", kernel=kernel, **timings[kernel][-1])
+    first = rows[0]
+    return ({"bilstm_fwd": max(first["ys"]["max_abs_err"], first["cs"]["max_abs_err"]),
+             "bilstm_bwd": first["dhg"]["max_abs_err"]}, timings)
+
+
+def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_SHAPES):
+    """K5f and K5b against their plain loops, against K1f and K1b on the
+    same relaid-out inputs (bit for bit: one compiled body), the whole
+    BiGRU2Function against plain forward + backward, then times beside
+    cuDNN's nn.GRU and the bounds. Arguments as for phase_kernel_lstm."""
+    import torch
+
+    from tpuasr_torch.ops.gru import bigru_backward, bigru_forward, shift_time
+    from tpuasr_torch.ops.gru2 import (
+        BiGRU2Function,
+        bigru2_backward,
+        bigru2_backward_reference,
+        bigru2_forward,
+        bigru2_reference,
+    )
+
+    def gate_major(xg, w_h, b_h):
+        t, nd, b, g3 = xg.shape
+        h = g3 // 3
+        return (xg.reshape(t, nd, b, 3, h).permute(0, 1, 3, 2, 4).contiguous(),
+                w_h.reshape(nd, h, 3, h).permute(0, 2, 1, 3).contiguous(),
+                b_h.reshape(nd, 3, h).contiguous())
+
+    cuda = torch.device(device)
+    rows = []
+    for i, (name, t, b, h, nd, dt, lengths) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        k1 = gru_case(t, b, h, nd, dtype, seed=60 + i, device=cuda, lengths=lengths)
+        k5 = (*gate_major(*k1[:3]), k1[3])
+        ys = bigru2_forward(*k5)
+        torch.cuda.synchronize()
+        fwd = check_fwd(f"bigru2_fwd {name}", ys, bigru2_reference(*k5), dt)
+        ys_k1 = bigru_forward(*k1)
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        dy = torch.randn(ys.shape, generator=gen, device=cuda).to(dtype)
+        dg = bigru2_backward(*k5, shift_time(ys), dy)
+        torch.cuda.synchronize()
+        bwd = check_bwd(f"bigru2_bwd {name}", dg,
+                        bigru2_backward_reference(*k5, shift_time(ys), dy), dt)
+        packed = bigru_backward(*k1, shift_time(ys), dy)
+        same_as_k1 = {
+            "fwd": bool(torch.equal(ys, ys_k1)),
+            "bwd": bool(torch.equal(dg, packed.reshape(t, nd, b, 4, h).permute(0, 1, 3, 2, 4)))}
+        check(all(same_as_k1.values()), f"K5 vs K1 on relaid-out inputs {name}: {same_as_k1}")
+        fn_err = function_vs_plain(BiGRU2Function.apply, *k5, dy, dt)
+        rows.append({"case": name, "shape": [t, nd, b, h], "dtype": dt, "ys": fwd, "dg": bwd,
+                     "bit_equal_to_k1": same_as_k1, "function_rel_norm_err": fn_err})
+        emit("kernel", kernel="bigru2", **rows[-1])
+
+    timings = {"bigru2_fwd": [], "bigru2_bwd": []}
+    for t, b, h in timing_shapes:
+        nd = 2
+        k1 = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda)
+        args = (*gate_major(*k1[:3]), k1[3])
+        ys = bigru2_reference(*args)
+        dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
+        bwd_args = (*args, shift_time(ys), dy)
+        for kernel, fn, plain, lib, back in (
+                ("bigru2_fwd", bigru2_forward, bigru2_reference, cudnn_rnn_ms, False),
+                ("bigru2_bwd", bigru2_backward, bigru2_backward_reference, cudnn_rnn_bwd_ms,
+                 True)):
+            a = bwd_args if back else args
+            bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, backward=back)
+            timings[kernel].append({
+                "shape": [t, nd, b, h], "dtype": "bfloat16",
+                "ms": time_ms(lambda: fn(*a), iters=10, warmup=2),
+                "plain_ms": time_ms(lambda: plain(*a), iters=2),
+                "library_ms": lib(*k1[:3], iters=10),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            emit("kernel_time", kernel=kernel, **timings[kernel][-1])
+    first = rows[0]
+    return ({"bigru2_fwd": first["ys"]["max_abs_err"],
+             "bigru2_bwd": first["dg"]["max_abs_err"]}, timings)
 
 
 def ctc_case(device, b=32, t=251, c=44, l_cap=130, seed=3):
@@ -526,33 +744,62 @@ def read_jsonl(path) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+# The recurrent kernels of each model path: the ops module, its forward
+# and backward wrappers (ds2 imports the forward one by name), its
+# autograd function, the plain forward, and the span names of the time
+# splits. "gru" is rnn_impl scan/pallas (K1), "gru2" is pallas2 (K5).
+RNN_PATHS = {
+    "gru": ("tpuasr_torch.ops.gru", "bigru_forward", "bigru_backward", "BiGRUFunction",
+            "bigru_reference", ("k1f", "k1b")),
+    "lstm": ("tpuasr_torch.ops.lstm", "bilstm_forward", "bilstm_backward", "BiLSTMFunction",
+             "bilstm_reference", ("k4f", "k4b")),
+    "gru2": ("tpuasr_torch.ops.gru2", "bigru2_forward", "bigru2_backward", "BiGRU2Function",
+             "bigru2_reference", ("k5f", "k5b")),
+}
+# the train CLI's flags of each path
+RNN_FLAGS = {"gru": (), "lstm": ("--rnn-type", "lstm"), "gru2": ("--rnn-impl", "pallas2")}
+
+
+def rnn_path(path: str):
+    """(module, forward name, backward name, autograd function, plain
+    forward, span names) of a path's recurrent kernels."""
+    import importlib
+
+    mod_name, fwd, bwd, fn, plain, spans = RNN_PATHS[path]
+    mod = importlib.import_module(mod_name)
+    return mod, fwd, bwd, getattr(mod, fn), getattr(mod, plain), spans
+
+
 def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
-                n_train: int = 64, n_val: int = 32, batch: int = 32):
-    """The training main path through tpuasr_torch.cli.train; ``device``
-    and ``width`` other than the defaults only rehearse it on the CPU."""
+                n_train: int = 64, n_val: int = 32, batch: int = 32,
+                path: str = "gru", epochs: int = 2, paths=None):
+    """The training main path through tpuasr_torch.cli.train for one
+    model path of RNN_PATHS (the flags of RNN_FLAGS); ``paths`` reuses
+    a corpus already written. ``device`` and ``width`` other than the
+    defaults only rehearse it on the CPU."""
     import shutil
 
     import torch
 
     import tpuasr_torch.ops.ctc as ctc_mod
-    import tpuasr_torch.ops.gru as gru_mod
     from tpuasr_torch.cli import synth_corpus
     from tpuasr_torch.cli import train as train_cli
     from tpuasr_torch.serve import TranscriptionService
 
     work = ROOT / "build" / "chip_smoke"
-    corpus, out = work / "corpus", work / "train"
-    shutil.rmtree(corpus, ignore_errors=True)
+    corpus, out = work / "corpus", work / ("train" if path == "gru" else f"train_{path}")
     shutil.rmtree(out, ignore_errors=True)
-    paths = synth_corpus.generate(str(corpus), n_train + n_val, 5.0,
-                                  n_val / (n_train + n_val), seed=0)
+    if paths is None:
+        shutil.rmtree(corpus, ignore_errors=True)
+        paths = synth_corpus.generate(str(corpus), n_train + n_val, 5.0,
+                                      n_val / (n_train + n_val), seed=0)
     argv = ["--train-manifest", paths["train"], "--val-manifest", paths["val"],
-            "--hidden-size", width[0], "--hidden-layers", width[1],
-            "--batch-size", str(batch), "--epochs", "2", "--checkpoint",
+            "--hidden-size", width[0], "--hidden-layers", width[1], *RNN_FLAGS[path],
+            "--batch-size", str(batch), "--epochs", str(epochs), "--checkpoint",
             "--save-folder", str(out), "--model-path", str(out / "best.ckpt"),
             "--log-dir", str(out / "log"), "--sync-every", "1", "--device", device]
-    counters = (gru_mod.bigru_forward, gru_mod.bigru_backward,
-                ctc_mod.ctc_alpha, ctc_mod.ctc_beta)
+    counters = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
+    counters += [ctc_mod.ctc_alpha, ctc_mod.ctc_beta]
     for fn in counters:  # ---- the main path starts here
         fn.launches = 0
     t0 = time.perf_counter()
@@ -565,18 +812,19 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
     check(rc == 0, f"cli.train returned {rc}")
     rows = read_jsonl(out / "log" / "metrics.jsonl")
     steps = [r for r in rows if "train/loss" in r]
-    epochs = [r for r in rows if "epoch/loss" in r]
-    check(len(steps) == 2 * n_train // batch, f"{len(steps)} train steps logged")
+    epoch_rows = [r for r in rows if "epoch/loss" in r]
+    check(len(steps) == epochs * n_train // batch, f"{len(steps)} train steps logged")
     for r in steps:
         check(np.isfinite(r["train/loss"]) and np.isfinite(r["train/grad_norm"]),
               f"non-finite step {r}")
         check(r["train/n_ok"] == batch, f"n_ok {r['train/n_ok']} != {batch}")
-    if device == "cuda":
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel never launched on the training path: {launches}")
+    if device == "cuda":  # this path's kernels and CTC's launched, no other RNN kernel
+        used = {*RNN_PATHS[path][1:3], "ctc_alpha", "ctc_beta"}
+        check(all((v > 0) == (k in used) for k, v in launches.items()),
+              f"kernel launches on the {path} training path: {launches}")
     step_s = [r["train/step_time"] for r in steps]
     ckpt = out / "best.ckpt"
-    check(ckpt.exists() and (out / "tpuasr_2.ckpt").exists(), "checkpoints not written")
+    check(ckpt.exists() and (out / f"tpuasr_{epochs}.ckpt").exists(), "checkpoints not written")
     svc = TranscriptionService(str(ckpt), device=device)
     try:
         wav = Path(paths["val"]).read_text().splitlines()[0].split(",")[0]
@@ -585,14 +833,15 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
         svc.close()
     check(isinstance(text, str) and len(offsets) == len(text), "transcription of a WAV")
     result = {
-        "device": name, "nvidia_smi": smi, "wall_s": wall_s, "steps": len(steps),
+        "path": path, "device": name, "nvidia_smi": smi, "wall_s": wall_s, "steps": len(steps),
         "batch": batch, "losses": [r["train/loss"] for r in steps],
         "grad_norms": [r["train/grad_norm"] for r in steps],
         "step_ms": [1e3 * x for x in step_s],
         # the first step of each epoch includes cuDNN/cuBLAS first use
         "step_ms_after_first": 1e3 * float(np.mean(step_s[1:])) if len(step_s) > 1 else None,
         "utt_per_s_after_first": batch / float(np.mean(step_s[1:])) if len(step_s) > 1 else None,
-        "val_wer": [r["epoch/wer"] for r in epochs], "log": str((out / "log" / "metrics.jsonl").relative_to(ROOT)),
+        "val_wer": [r["epoch/wer"] for r in epoch_rows],
+        "log": str((out / "log" / "metrics.jsonl").relative_to(ROOT)),
         "launches": launches, "checkpoint": str(ckpt.relative_to(ROOT)),
         "transcribed": {"wav": Path(wav).name, "text": text},
     }
@@ -600,7 +849,7 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
     return result, out, paths
 
 
-def train_step_parity(out, paths, device: str = "cuda") -> dict:
+def train_step_parity(out, paths, device: str = "cuda", path: str = "gru") -> dict:
     """One train step's loss and gradients through the kernels against
     the plain versions on the card, same weights (the epoch-1
     checkpoint) and the first training batch, before any update."""
@@ -629,7 +878,7 @@ def train_step_parity(out, paths, device: str = "cuda") -> dict:
     (loss_k, g_k), (loss_p, g_p) = res[False], res[True]
     errs = {k: rel_norm_err(g_k[k], g_p[k]) for k in g_p}
     worst = max(errs, key=errs.get)
-    row = {"loss_kernels": loss_k, "loss_plain": loss_p,
+    row = {"path": path, "loss_kernels": loss_k, "loss_plain": loss_p,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
            "grad_rel_norm_err_max": errs[worst], "worst_param": worst,
            "grad_rel_norm_err_median": float(np.median(list(errs.values())))}
@@ -639,18 +888,18 @@ def train_step_parity(out, paths, device: str = "cuda") -> dict:
     return row
 
 
-def train_breakdown(out, paths, smi: str) -> dict:
+def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
     """Where one full-width train step's device time goes: CUDA events
-    around the frontend, the conv blocks, the RNN layers' forward (K1f
-    inside), the CTC loss (K2a inside), the backward's K1b and K2b
-    calls, the rest of the BiGRU backward (dw and db einsums, packing),
-    the clip and the SGD step, and the whole step; ``rest`` is what no
-    span covers (the backward of the convs, projections, BatchNorms and
-    head, and the global norms). Means over 3 steps after a warm one."""
+    around the frontend, the conv blocks, the RNN layers' forward (the
+    path's forward kernel inside: K1f, K4f or K5f), the CTC loss (K2a
+    inside), the backward's RNN kernel (K1b, K4b or K5b) and K2b calls,
+    the rest of the RNN backward (dw and db einsums, packing), the clip
+    and the SGD step, and the whole step; ``rest`` is what no span
+    covers (the backward of the convs, projections, BatchNorms and head,
+    and the global norms). Means over 3 steps after a warm one."""
     import torch
 
     import tpuasr_torch.ops.ctc as ctc_mod
-    import tpuasr_torch.ops.gru as gru_mod
     import tpuasr_torch.train.step as step_mod
     from tpuasr_torch.compat.weights import model_from_variables
     from tpuasr_torch.data.buckets import BucketSpec, make_buckets
@@ -682,16 +931,16 @@ def train_breakdown(out, paths, smi: str) -> dict:
         wrapper.launches = 0
         return wrapper
 
-    bwd = gru_mod.BiGRUFunction.backward
+    mod, fwd_name, bwd_name, fn_cls, _, (kf, kb) = rnn_path(path)
     patches = [
         mock.patch.object(step_mod, "log_spectrogram", timed("frontend", step_mod.log_spectrogram)),
         mock.patch.object(step_mod, "ctc_loss", timed("ctc_loss_forward", step_mod.ctc_loss)),
-        mock.patch.object(gru_mod, "bigru_forward", timed("k1f", gru_mod.bigru_forward)),
-        mock.patch.object(gru_mod, "bigru_backward", timed("k1b", gru_mod.bigru_backward)),
+        mock.patch.object(mod, fwd_name, timed(kf, getattr(mod, fwd_name))),
+        mock.patch.object(mod, bwd_name, timed(kb, getattr(mod, bwd_name))),
         mock.patch.object(ctc_mod, "ctc_alpha", timed("k2a", ctc_mod.ctc_alpha)),
         mock.patch.object(ctc_mod, "ctc_beta", timed("k2b", ctc_mod.ctc_beta)),
-        mock.patch.object(gru_mod.BiGRUFunction, "backward",
-                          staticmethod(timed("bigru_backward_fn", bwd))),
+        mock.patch.object(fn_cls, "backward",
+                          staticmethod(timed("rnn_backward_fn", fn_cls.backward))),
         mock.patch.object(step_mod, "clip_by_global_norm_",
                           timed("clip", step_mod.clip_by_global_norm_)),
         mock.patch.object(step.optimizer, "step", timed("sgd_step", step.optimizer.step)),
@@ -727,12 +976,12 @@ def train_breakdown(out, paths, smi: str) -> dict:
         ms[name] = ms.get(name, 0.0) + s.elapsed_time(e) / reps
     total = start.elapsed_time(end) / reps
     top = ("frontend", "conv", "rnn_forward", "ctc_loss_forward", "k2b",
-           "bigru_backward_fn", "clip", "sgd_step")  # disjoint spans
-    row = {"batch": list(batch.waves.shape), "step_device_ms": total, "step_host_ms": host_ms,
-           **{f"{k}_ms": v for k, v in sorted(ms.items())},
+           "rnn_backward_fn", "clip", "sgd_step")  # disjoint spans
+    row = {"path": path, "batch": list(batch.waves.shape), "step_device_ms": total,
+           "step_host_ms": host_ms, **{f"{k}_ms": v for k, v in sorted(ms.items())},
            "rest_ms": total - sum(ms[k] for k in top),  # other backward work, norms
-           "bigru_backward_outside_k1b_ms": ms["bigru_backward_fn"] - ms["k1b"],
-           "rnn_forward_outside_k1f_ms": ms["rnn_forward"] - ms["k1f"],
+           f"rnn_backward_outside_{kb}_ms": ms["rnn_backward_fn"] - ms[kb],
+           f"rnn_forward_outside_{kf}_ms": ms["rnn_forward"] - ms[kf],
            "nvidia_smi": smi}
     emit("train_breakdown", **row)
     return row
@@ -1184,8 +1433,13 @@ def post(url: str, body: bytes, out: dict) -> None:
     out["latency_s"] = time.perf_counter() - t0
 
 
-def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None):
-    """The serving main path; ``device``/``cfg`` other than the
+def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None, path: str = "gru",
+                ckpt=None, durations=(1.0, 1.6, 2.2, 2.9, 3.4, 4.1, 4.6, 5.0),
+                long_request: bool = True, warmup=(5.0, 16.5)):
+    """The serving main path of one model path of RNN_PATHS: ``ckpt``
+    (a trained checkpoint), else a seeded full-width flagship checkpoint
+    of ``cfg``, answering concurrent requests of ``durations`` seconds
+    (and one 20 s long-form request). ``device``/``cfg`` other than the
     defaults only rehearse the phase on the CPU at a small width."""
     import torch
 
@@ -1193,30 +1447,35 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None):
     from tpuasr_torch.audio.frontend import FrontendConfig
     from tpuasr_torch.compat.weights import init_variables
     from tpuasr_torch.labels import Alphabet
-    from tpuasr_torch.ops.gru import bigru_forward, bigru_reference
     from tpuasr_torch.serve import ServeConfig, TranscriptionService, make_http_server
     from tpuasr_torch.train.checkpoint import CheckpointPackage, save_checkpoint
 
-    cfg = cfg or ds2.ModelConfig(rnn_impl="pallas")  # the flagship, full width
-    path = ROOT / "build" / "chip_smoke" / "flagship.tpuasr"
-    t0 = time.perf_counter()
-    save_checkpoint(str(path), CheckpointPackage(
-        model_config=cfg, frontend_config=FrontendConfig(),
-        labels=Alphabet().labels, variables=init_variables(cfg, seed=0)))
-    emit("checkpoint", path=str(path.relative_to(ROOT)),
-         mbytes=path.stat().st_size / 1e6, write_s=time.perf_counter() - t0)
+    mod, fwd_name, _, _, plain, _ = rnn_path(path)
+    kernel = getattr(mod, fwd_name)
+    if ckpt is None:
+        cfg = cfg or ds2.ModelConfig(rnn_impl="pallas")  # the flagship, full width
+        ckpt = ROOT / "build" / "chip_smoke" / "flagship.tpuasr"
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt), CheckpointPackage(
+            model_config=cfg, frontend_config=FrontendConfig(),
+            labels=Alphabet().labels, variables=init_variables(cfg, seed=0)))
+        emit("checkpoint", path=str(ckpt.relative_to(ROOT)),
+             mbytes=ckpt.stat().st_size / 1e6, write_s=time.perf_counter() - t0)
 
-    durations = [1.0, 1.6, 2.2, 2.9, 3.4, 4.1, 4.6, 5.0]
+    durations = list(durations)
     bodies = [wav_bytes(d, seed=i) for i, d in enumerate(durations)]
-    bodies.append(wav_bytes(20.0, seed=99))  # past the 16.5 s ladder
+    if long_request:
+        durations.append(20.0)
+        bodies.append(wav_bytes(20.0, seed=99))  # past the 16.5 s ladder
+    n_short = len(bodies) - long_request
 
-    bigru_forward.launches = 0  # ---- the main path starts here
+    kernel.launches = 0  # ---- the main path starts here
     t0 = time.perf_counter()
     # warm-up runs the 5 s and 16.5 s bucket shapes once before traffic
     # (first cuDNN/cuBLAS use), as a production server is started
     svc = TranscriptionService(
-        str(path), ServeConfig(max_batch=32, batch_window_ms=50.0,
-                               warmup_seconds=(5.0, 16.5)),
+        str(ckpt), ServeConfig(max_batch=32, batch_window_ms=50.0,
+                               warmup_seconds=tuple(warmup)),
         device=device)
     start_s = time.perf_counter() - t0
     server = make_http_server(svc, "127.0.0.1", 0)
@@ -1233,38 +1492,39 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None):
         for c in clients:
             c.join(timeout=900)
         wall_s = time.perf_counter() - t0
-        launches = bigru_forward.launches  # ---- the main path ends here
+        launches = kernel.launches  # ---- the main path ends here
         check(not any(c.is_alive() for c in clients), "requests timed out")
-        for d, res in zip(durations + [20.0], results):
+        for d, res in zip(durations, results):
             check("error" not in res and res.get("status") == 200,
                   f"request of {d}s failed: {res.get('error')}")
             check(isinstance(res["text"], str) and isinstance(res["offsets"], list),
                   f"malformed answer for {d}s: {res}")
-        check(launches > 0, "the BiGRU kernel never launched on the main path")
+        if device == "cuda":
+            check(launches > 0, f"{fwd_name} never launched on the {path} serving path")
         lat = sorted(r["latency_s"] for r in results)
-        emit("serve", device=name, nvidia_smi=smi,
+        emit("serve", path=path, device=name, nvidia_smi=smi,
              start_s=start_s, requests=len(results), wall_s=wall_s,
-             audio_s=sum(durations) + 20.0,
-             x_realtime=(sum(durations) + 20.0) / wall_s,
+             audio_s=sum(durations), x_realtime=sum(durations) / wall_s,
              latency_s=[r["latency_s"] for r in results],
              latency_p50_s=lat[len(lat) // 2], latency_max_s=lat[-1],
              text_chars=[len(r["text"]) for r in results],
-             bigru_launches=launches)
+             rnn_kernel=fwd_name, rnn_launches=launches)
 
-        # one service-shaped batch (the 8 short requests, padded to the
-        # 5 s bucket and 32 rows), kernel vs plain GRU on the card
+        # one service-shaped batch (the short requests, padded to the
+        # 5 s bucket and 32 rows), kernel vs plain loop on the card
         from scipy.io import wavfile
 
-        waves = [wavfile.read(io.BytesIO(b))[1] for b in bodies[:-1]]
+        waves = [wavfile.read(io.BytesIO(b))[1] for b in bodies[:n_short]]
         arr = np.zeros((32, svc.spec.bucket_samples(svc.spec.bucket_of(5.0))), np.int16)
         lens = np.zeros((32,), np.int32)
         for j, w in enumerate(waves):
             arr[j, :len(w)], lens[j] = w, len(w)
         logits_k, out_len = svc.eval_step(arr, lens)
-        with mock.patch.object(ds2, "bigru_forward", bigru_reference):
+        with mock.patch.object(ds2, fwd_name, plain):
             logits_p, _ = svc.eval_step(arr, lens)
         check(bool(torch.isfinite(logits_k).all()), "non-finite logits")
-        check(tuple(logits_k.shape) == (32, int(out_len.max()), cfg.n_classes),
+        n_classes = svc.model.config.n_classes
+        check(tuple(logits_k.shape) == (32, int(out_len.max()), n_classes),
               f"logits shape {tuple(logits_k.shape)}")
         valid = (torch.arange(logits_k.shape[1], device=out_len.device)[None, :]
                  < out_len[:, None])
@@ -1273,18 +1533,18 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None):
         stats = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
                  "argmax_agreement": agree,
                  "logits_abs_max": logits_p.abs().max().item()}
-        emit("serve_parity", **stats)
+        emit("serve_parity", path=path, **stats)
         check(stats["mean_abs_err"] <= 1e-2 and stats["max_abs_err"] <= 0.25
-              and agree >= 0.98, f"service logits vs plain GRU: {stats}")
+              and agree >= 0.98, f"service logits vs plain {path} loop: {stats}")
 
         lone = {}
         post(url, bodies[3], lone)  # one request with nothing else queued
         check("error" not in lone, f"lone request failed: {lone.get('error')}")
-        emit("serve_lone_request", seconds=durations[3],
+        emit("serve_lone_request", path=path, seconds=durations[3],
              latency_s=lone["latency_s"], nvidia_smi=smi)
         if device == "cuda":
-            emit("batch_breakdown", nvidia_smi=smi,
-                 **batch_breakdown(svc, arr, lens))
+            emit("batch_breakdown", path=path, nvidia_smi=smi,
+                 **batch_breakdown(svc, arr, lens, fwd_name))
     finally:
         server.shutdown()
         server.server_close()
@@ -1293,15 +1553,17 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None):
     return launches
 
 
-def batch_breakdown(svc, arr, lens) -> dict:
+def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
     """Where one service batch's time goes: CUDA events around the
-    model's conv blocks, RNN layers (the GRU kernel calls inside them
-    separately), the head, and the whole eval step; host clock around
-    the eval step (ending in a synchronize) and the greedy decode."""
+    model's conv blocks, RNN layers (the calls of their kernel, ds2's
+    ``fwd_name``, inside them separately), the head, and the whole eval
+    step; host clock around the eval step (ending in a synchronize) and
+    the greedy decode."""
     import torch
 
     import tpuasr_torch.model.ds2 as ds2
-    from tpuasr_torch.ops.gru import bigru_forward
+
+    kernel = getattr(ds2, fwd_name)
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
@@ -1320,14 +1582,14 @@ def batch_breakdown(svc, arr, lens) -> dict:
         hooks.append(mod.register_forward_hook(
             lambda m, a, o, name=name: spans.append((name, starts[id(m)], event()))))
 
-    def timed_gru(*args):
+    def timed_kernel(*args):
         s = event()
-        ys = bigru_forward(*args)
-        spans.append(("bigru_kernel", s, event()))
+        ys = kernel(*args)
+        spans.append(("rnn_kernel", s, event()))
         return ys
 
     try:
-        with mock.patch.object(ds2, "bigru_forward", timed_gru):
+        with mock.patch.object(ds2, fwd_name, timed_kernel):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start = event()
@@ -1351,8 +1613,8 @@ def batch_breakdown(svc, arr, lens) -> dict:
         "eval_device_ms": start.elapsed_time(end),
         "frontend_ms": start.elapsed_time(first_conv),
         "conv_ms": ms["conv"], "rnn_ms": ms["rnn"],
-        "bigru_kernel_ms": ms["bigru_kernel"],
-        "rnn_outside_kernel_ms": ms["rnn"] - ms["bigru_kernel"],
+        "rnn_kernel": fwd_name, "rnn_kernel_ms": ms["rnn_kernel"],
+        "rnn_outside_kernel_ms": ms["rnn"] - ms["rnn_kernel"],
         "head_bn_ms": ms["head_bn"], "decode_host_ms": decode_host_ms,
     }
 
@@ -1372,12 +1634,15 @@ def build_all(names) -> None:
                     if "registers" in ln or "smem" in ln or "spill" in ln])
 
 
-def kernel_entry(name, source, replaces, launches, err, timing, **extra):
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": timing["ms"],
-            "kernel_ms": timing["ms"], "plain_ms": timing["plain_ms"],
+def kernel_entry(name, replaces, err, timing, launches: dict, **extra):
+    """One kernel's entry of the kernels line; ``launches`` by path."""
+    source = "ctc" if name.startswith("ctc") else name
+    return {"name": name, "route": "cuda", "source": f"tpuasr_torch/ops/csrc/{source}.cu",
+            "replaces": replaces, "launches": sum(launches.values()), "max_abs_err": err,
+            "ms": timing["ms"], "kernel_ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"], "shape": timing["shape"], **extra}
+            "library_ms": timing["library_ms"], "shape": timing["shape"],
+            "launches_by_path": launches, **extra}
 
 
 def main() -> int:
@@ -1394,11 +1659,14 @@ def main() -> int:
     emit("device", name=name, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
-    build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam"])
+    build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd",
+               "bigru2_fwd", "bigru2_bwd"])
 
     k1f_row, k1f_timings = phase_kernel()
     k1b_row, k1b_timings = phase_kernel_bwd()
     ctc_row, ctc_timing = phase_kernel_ctc()
+    k4_err, k4_timings = phase_kernel_lstm()
+    k5_err, k5_timings = phase_kernel_gru2()
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)
     train_breakdown(out, paths, smi)
@@ -1406,38 +1674,60 @@ def main() -> int:
     decode_res, lm_word = phase_decode(out, paths, smi)
     decode_breakdown(out, paths, lm_word, smi)
     serve_launches = phase_serve(smi, name)
+    # the BiLSTM and the gate-major BiGRU: one epoch (2 steps and a
+    # validation) on the same corpus, then their checkpoints served
+    launches = {}
+    for path in ("lstm", "gru2"):
+        res, p_out, _ = phase_train(smi, name, path=path, epochs=1, paths=paths)
+        train_step_parity(p_out, paths, path=path)
+        train_breakdown(p_out, paths, smi, path=path)
+        launches[path] = (res["launches"], phase_serve(
+            smi, name, path=path, ckpt=p_out / "best.ckpt", durations=(1.0, 2.2, 3.4, 5.0),
+            long_request=False, warmup=(5.0,)))
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
+    (lstm_train, lstm_serve), (gru2_train, gru2_serve) = launches["lstm"], launches["gru2"]
     beam_launches = {**{f"test_{k}": v["launches"] for k, v in decode_res.items()
                         if isinstance(v, dict)},
                      **{k: v for k, v in decode_res.items() if not isinstance(v, dict)}}
-    card = {"card": smi}
+
+    def by_path(wrapper, **serve):
+        """A wrapper's launch counts on the three training paths (and
+        the serving paths given)."""
+        return {"train": train_launches[wrapper], "train_lstm": lstm_train[wrapper],
+                "train_gru2": gru2_train[wrapper], **serve}
+
     print(json.dumps({"kernels": [
-        kernel_entry("bigru_fwd", "tpuasr_torch/ops/csrc/bigru_fwd.cu",
-                     "tpuasr/ops/gru.py:71 _fwd_kernel",
-                     serve_launches + train_launches["bigru_forward"],
-                     k1f_row["max_abs_err"], k1f_timings[0],
-                     launches_by_path={"serve": serve_launches,
-                                       "train": train_launches["bigru_forward"]},
-                     timings=k1f_timings, **card),
-        kernel_entry("bigru_bwd", "tpuasr_torch/ops/csrc/bigru_bwd.cu",
-                     "tpuasr/ops/gru.py:100 _bwd_kernel",
-                     train_launches["bigru_backward"], k1b_row["max_abs_err"],
-                     k1b_timings[0], timings=k1b_timings, **card),
-        kernel_entry("ctc_alpha", "tpuasr_torch/ops/csrc/ctc.cu",
-                     "tpuasr/ops/ctc.py:57 _alpha_kernel",
-                     train_launches["ctc_alpha"], ctc_row["alphas_max_abs_err"],
-                     ctc_timing["ctc_alpha"], loss_rel_err=ctc_row["loss_rel_err"], **card),
-        kernel_entry("ctc_beta", "tpuasr_torch/ops/csrc/ctc.cu",
-                     "tpuasr/ops/ctc.py:83 _beta_kernel",
-                     train_launches["ctc_beta"], ctc_row["demit_max_abs_err"],
-                     ctc_timing["ctc_beta"],
-                     dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], **card),
-        kernel_entry("beam", "tpuasr_torch/ops/csrc/beam.cu",
-                     "tpuasr/ops/beam.py:89 _beam_kernel", sum(beam_launches.values()),
-                     beam_err, next(r for r in beam_timings if r["mode"] == "word"),
-                     launches_by_path=beam_launches, timings=beam_timings, **card),
+        kernel_entry("bigru_fwd", "tpuasr/ops/gru.py:71 _fwd_kernel", k1f_row["max_abs_err"],
+                     k1f_timings[0], by_path("bigru_forward", serve=serve_launches),
+                     timings=k1f_timings, card=smi),
+        kernel_entry("bigru_bwd", "tpuasr/ops/gru.py:100 _bwd_kernel", k1b_row["max_abs_err"],
+                     k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
+                     card=smi),
+        kernel_entry("ctc_alpha", "tpuasr/ops/ctc.py:57 _alpha_kernel",
+                     ctc_row["alphas_max_abs_err"], ctc_timing["ctc_alpha"],
+                     by_path("ctc_alpha"), loss_rel_err=ctc_row["loss_rel_err"], card=smi),
+        kernel_entry("ctc_beta", "tpuasr/ops/ctc.py:83 _beta_kernel",
+                     ctc_row["demit_max_abs_err"], ctc_timing["ctc_beta"], by_path("ctc_beta"),
+                     dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], card=smi),
+        kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
+                     next(r for r in beam_timings if r["mode"] == "word"), beam_launches,
+                     timings=beam_timings, card=smi),
+        kernel_entry("bilstm_fwd", "tpuasr/ops/lstm.py:62 _fwd_kernel", k4_err["bilstm_fwd"],
+                     k4_timings["bilstm_fwd"][0],
+                     by_path("bilstm_forward", serve_lstm=lstm_serve),
+                     timings=k4_timings["bilstm_fwd"], card=smi),
+        kernel_entry("bilstm_bwd", "tpuasr/ops/lstm.py:94 _bwd_kernel", k4_err["bilstm_bwd"],
+                     k4_timings["bilstm_bwd"][0], by_path("bilstm_backward"),
+                     timings=k4_timings["bilstm_bwd"], card=smi),
+        kernel_entry("bigru2_fwd", "tpuasr/ops/gru2.py:36 _fwd_kernel", k5_err["bigru2_fwd"],
+                     k5_timings["bigru2_fwd"][0],
+                     by_path("bigru2_forward", serve_gru2=gru2_serve),
+                     timings=k5_timings["bigru2_fwd"], card=smi),
+        kernel_entry("bigru2_bwd", "tpuasr/ops/gru2.py:77 _bwd_kernel", k5_err["bigru2_bwd"],
+                     k5_timings["bigru2_bwd"][0], by_path("bigru2_backward"),
+                     timings=k5_timings["bigru2_bwd"], card=smi),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,13 @@ order); bf16 max-abs 2e-2 and mean-abs 1e-3 relative to it (packed is
 rounded to bf16, 2**-8 relative, and a moved rounding of a recomputed
 gate can flip one bf16 ulp of the output).
 
+BiLSTM (K4) forward, ys and cs, and backward, dhg: the BiGRU's
+tolerances, for the same reasons (h carried rounded to bf16, c carried
+in f32 and emitted rounded, dhg rounded; another f32 summation order).
+Gate-major BiGRU (K5): the BiGRU's tolerances against its plain
+version, and bit-equal to K1 on the relaid-out inputs (the same
+compiled body with other strides).
+
 CTC alpha and beta: alphas within rel 1e-5 of the plain recursion on
 frames where they are finite, dL/demit within 2e-4 absolute
 (tests/test_pallas_ctc.py's loss and gradient tolerances); both sum the
@@ -35,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import cuda, gru_inputs  # noqa: F401 (fixture)
+from torch_helpers import cuda, gate_major, gru_inputs  # noqa: F401 (fixture)
 from tpuasr_torch.decode.beam import pack_lm_tables, pack_word_lm_tables
 from tpuasr_torch.decode.lm import train_ngram
 from tpuasr_torch.labels import Alphabet
@@ -55,6 +62,20 @@ from tpuasr_torch.ops.gru import (
     bigru_backward_reference,
     bigru_forward,
     bigru_reference,
+)
+from tpuasr_torch.ops.gru2 import (
+    BiGRU2Function,
+    bigru2_backward,
+    bigru2_backward_reference,
+    bigru2_forward,
+    bigru2_reference,
+)
+from tpuasr_torch.ops.lstm import (
+    BiLSTMFunction,
+    bilstm_backward,
+    bilstm_backward_reference,
+    bilstm_forward,
+    bilstm_reference,
 )
 
 CASES = [  # (T, B, H, D)
@@ -78,6 +99,23 @@ def test_library_name_carries_the_source_hash():
     path = _build.library_path("bigru_fwd")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path.name.startswith("libbigru_fwd-") and len(path.stem) == len("libbigru_fwd-") + 16
+
+
+def test_library_name_follows_the_local_headers(tmp_path, monkeypatch):
+    """An edited header that a source includes names a new library, so a
+    stale build is never loaded; nvcc is not needed for this."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.sources("bilstm_bwd")] == ["bilstm_bwd.cu", "rnn.cuh"]
+    assert [p.name for p in _build.sources("ctc")] == ["ctc.cu"]
+    before = {n: _build.library_path(n) for n in ("bigru_fwd", "bigru2_bwd", "ctc")}
+    with open(csrc / "rnn.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert after["bigru_fwd"] != before["bigru_fwd"]
+    assert after["bigru2_bwd"] != before["bigru2_bwd"]
+    assert after["ctc"] == before["ctc"]
 
 
 def test_build_without_nvcc_raises():
@@ -161,6 +199,125 @@ def test_bigru_function_gradients_match_plain_autograd(cuda):  # noqa: F811
         grads.append([a.grad for a in leaves])
     for g_k, g_r in zip(*grads):
         assert (g_k - g_r).abs().max().item() <= 3e-4
+
+
+def _lstm_args(device, t, b, h, nd, dtype, seed=13):
+    rng = np.random.RandomState(seed)
+    xg, w_h, b_h, mask = [torch.from_numpy(a).to(device)
+                          for a in gru_inputs(rng, t, b, h, nd, n_gates=4)]
+    return xg.to(dtype), w_h.to(dtype), b_h, mask
+
+
+def _shift(x):
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]]).contiguous()
+
+
+def _assert_close(got, want, dtype, scale=1.0):
+    """The forward (scale 1) and backward (scale = largest |want|)
+    tolerances of the module docstring."""
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4 * scale
+    else:
+        assert diff.max().item() <= (3e-2 if scale == 1.0 else 2e-2 * scale)
+        assert diff.mean().item() <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h,nd", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_lstm_kernels_match_reference(t, b, h, nd, dtype, cuda):  # noqa: F811
+    args = _lstm_args(cuda, t, b, h, nd, dtype)
+    before = (bilstm_forward.launches, bilstm_backward.launches)
+    ys, cs = bilstm_forward(*args)
+    torch.cuda.synchronize()
+    assert ys.shape == cs.shape == (t, nd, b, h) and ys.dtype == cs.dtype == dtype
+    ys_r, cs_r = bilstm_reference(*args)
+    _assert_close(ys, ys_r, dtype)
+    _assert_close(cs, cs_r, dtype)
+    dy = torch.from_numpy(np.random.RandomState(t).randn(t, nd, b, h).astype(np.float32))
+    bwd = (*args, _shift(ys_r), _shift(cs_r), cs_r, dy.to(cuda, dtype))
+    dhg = bilstm_backward(*bwd)
+    torch.cuda.synchronize()
+    assert dhg.shape == (t, nd, b, 4 * h) and dhg.dtype == dtype
+    want = bilstm_backward_reference(*bwd)
+    _assert_close(dhg, want, dtype, want.float().abs().max().item())
+    assert (bilstm_forward.launches, bilstm_backward.launches) == (before[0] + t,
+                                                                   before[1] + 2 * t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h,nd", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gru2_kernels_match_reference_and_k1(t, b, h, nd, dtype, cuda):  # noqa: F811
+    xg, w_h, b_h, mask = _args(cuda, t, b, h, nd, dtype)
+    k5 = [torch.from_numpy(a).to(cuda) for a in
+          gate_major(xg.float().cpu().numpy(), w_h.float().cpu().numpy(), b_h.cpu().numpy())]
+    k5 = (k5[0].to(dtype), k5[1].to(dtype), k5[2], mask)
+    before = (bigru2_forward.launches, bigru2_backward.launches)
+    ys = bigru2_forward(*k5)
+    torch.cuda.synchronize()
+    assert ys.shape == (t, nd, b, h) and ys.dtype == dtype
+    _assert_close(ys, bigru2_reference(*k5), dtype)
+    assert torch.equal(ys, bigru_forward(xg, w_h, b_h, mask))  # K5f == K1f
+    h_prev = _shift(ys)
+    dy = torch.from_numpy(np.random.RandomState(t).randn(t, nd, b, h).astype(np.float32))
+    dy = dy.to(cuda, dtype)
+    dg = bigru2_backward(*k5, h_prev, dy)
+    torch.cuda.synchronize()
+    assert dg.shape == (t, nd, 4, b, h) and dg.dtype == dtype
+    want = bigru2_backward_reference(*k5, h_prev, dy)
+    _assert_close(dg, want, dtype, want.float().abs().max().item())
+    packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)  # K5b == K1b
+    assert torch.equal(dg, packed.reshape(t, nd, b, 4, h).permute(0, 1, 3, 2, 4))
+    assert (bigru2_forward.launches, bigru2_backward.launches) == (before[0] + t,
+                                                                   before[1] + 2 * t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,plain,n_gates", [
+    (BiLSTMFunction.apply, lambda *a: bilstm_reference(*a)[0], 4),
+    (BiGRU2Function.apply, bigru2_reference, 3),
+], ids=["lstm", "gru2"])
+def test_new_rnn_functions_gradients_match_plain_autograd(fn, plain, n_gates,
+                                                          cuda):  # noqa: F811
+    if n_gates == 4:
+        xg, w_h, b_h, mask = _lstm_args(cuda, 9, 5, 32, 2, torch.float32)
+    else:
+        xg, w_h, b_h, mask = [torch.from_numpy(a).to(cuda) for a in (
+            *gate_major(*gru_inputs(np.random.RandomState(3), 9, 5, 32, 2)[:3]),
+            gru_inputs(np.random.RandomState(3), 9, 5, 32, 2)[3])]
+    dy = torch.from_numpy(np.random.RandomState(4).randn(9, 2, 5, 32).astype(np.float32))
+    grads = []
+    for f in (fn, plain):
+        leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
+        (f(*leaves, mask) * dy.to(cuda)).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for g_k, g_r in zip(*grads):
+        assert (g_k - g_r).abs().max().item() <= 3e-4
+
+
+@pytest.mark.cuda
+def test_new_rnn_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
+    xg, w_h, b_h, mask = _lstm_args(cuda, 5, 3, 8, 2, torch.bfloat16)
+    with pytest.raises(TypeError):
+        bilstm_forward(xg, w_h.float(), b_h, mask)
+    with pytest.raises(ValueError):
+        bilstm_forward(xg[..., :24].contiguous(), w_h, b_h, mask)  # 3H: a GRU's xg
+    ys, cs = bilstm_forward(xg, w_h, b_h, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        bilstm_backward(xg, w_h, b_h, mask, ys, cs, cs.transpose(0, 1).contiguous()
+                        .transpose(0, 1), ys)
+    k5 = gate_major(*[a.float().cpu().numpy() for a in _args(cuda, 5, 3, 8, 2,
+                                                             torch.float32)[:3]])
+    xg5, w5, b5 = [torch.from_numpy(a).to(cuda) for a in k5]
+    with pytest.raises(ValueError):
+        bigru2_forward(xg5, w5.transpose(2, 3).contiguous()[:, :2], b5, mask)
+    with pytest.raises(ValueError):
+        bigru2_forward(xg5.reshape(5, 2, 9, 8), w5, b5, mask)
+    with pytest.raises(TypeError):
+        h_prev = xg5[:, :, 0].contiguous()
+        bigru2_backward(xg5, w5, b5, mask, h_prev, h_prev.bfloat16())
 
 
 def _ctc_case(device, t, b, s, seed=7):

@@ -72,7 +72,7 @@ def test_logits_match_jax_pallas_bf16():
 
 
 @pytest.mark.parametrize("cfg_kw,item", [
-    ({"rnn_type": "lstm"}, "K4"),
+    ({"rnn_type": "rnn"}, "vanilla"),
     ({"bidirectional": False}, "streaming"),
 ])
 def test_unported_configs_raise(cfg_kw, item):

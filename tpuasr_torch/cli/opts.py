@@ -6,6 +6,7 @@ with a word or char LM); ``beam-native`` parses and then raises."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from tpuasr_torch.audio.frontend import FrontendConfig
 from tpuasr_torch.decode.beam import DeviceBeamDecoder
@@ -15,6 +16,10 @@ from tpuasr_torch.decode.lm import load_lm
 from tpuasr_torch.device import DEVICES
 from tpuasr_torch.labels import Alphabet, load_labels
 from tpuasr_torch.model.ds2 import ModelConfig
+
+RNN_IMPL_HELP = ("recurrent kernel (kept in the checkpoint): a GRU runs K1 "
+                 "under scan and pallas, K5 (the gate-major BiGRU) under "
+                 "pallas2; an LSTM runs K4 under every choice")
 
 
 def add_audio_args(p: argparse.ArgumentParser) -> None:
@@ -40,8 +45,7 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compute-dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--rnn-impl", default="scan", choices=["scan", "pallas", "pallas2"],
-                   help="kept in the checkpoint; the port runs one BiGRU "
-                   "kernel for every choice")
+                   help=RNN_IMPL_HELP)
     p.add_argument("--bn-mask-mode", default="masked",
                    choices=["masked", "reference"],
                    help="masked: BN stats/RNN carries see true lengths "
@@ -96,14 +100,20 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def add_runtime_args(p: argparse.ArgumentParser) -> None:
-    """Runtime (non-weight) choices: where to run, and the checkpoint's
-    RNN implementation, which the port accepts and runs with its one
-    BiGRU kernel."""
+    """Runtime (non-weight) choices: where to run, and an override of
+    the checkpoint's RNN implementation (kernel selection)."""
     p.add_argument("--rnn-impl", default=None,
                    choices=["scan", "pallas", "pallas2"],
-                   help="accepted for compatibility; the port runs one "
-                   "BiGRU kernel for every choice")
+                   help="override the checkpoint's RNN implementation: "
+                   + RNN_IMPL_HELP)
     add_device_arg(p)
+
+
+def apply_runtime_overrides(model_cfg: ModelConfig, args) -> ModelConfig:
+    """The checkpoint's model config with ``--rnn-impl`` applied."""
+    if getattr(args, "rnn_impl", None):
+        model_cfg = dataclasses.replace(model_cfg, rnn_impl=args.rnn_impl)
+    return model_cfg
 
 
 def build_decoder(args, alphabet: Alphabet):

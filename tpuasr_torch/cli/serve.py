@@ -61,7 +61,7 @@ def main(argv=None) -> int:
                     warmup_seconds=tuple(args.warmup_seconds),
                     long_audio=args.long_audio,
                     chunk_overlap=args.chunk_overlap),
-        decoder=decoder, package=pkg, device=args.device,
+        decoder=decoder, package=pkg, device=args.device, rnn_impl=args.rnn_impl,
     )
     server = make_http_server(service, args.host, args.port)
     print(f"tpuasr_torch serving on {args.host}:{args.port} "

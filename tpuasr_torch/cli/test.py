@@ -21,7 +21,12 @@ import time
 
 import torch
 
-from tpuasr_torch.cli.opts import add_decoder_args, add_runtime_args, build_decoder
+from tpuasr_torch.cli.opts import (
+    add_decoder_args,
+    add_runtime_args,
+    apply_runtime_overrides,
+    build_decoder,
+)
 from tpuasr_torch.compat.weights import model_from_variables
 from tpuasr_torch.data.buckets import BucketSpec, make_buckets
 from tpuasr_torch.data.loader import AudioBatchLoader
@@ -60,7 +65,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     pkg = load_checkpoint(args.model_path)
     alphabet = pkg.alphabet
-    model = model_from_variables(pkg.variables, pkg.model_config, device)
+    model = model_from_variables(pkg.variables, apply_runtime_overrides(pkg.model_config, args),
+                                 device)
     eval_step = make_eval_step(model, pkg.frontend_config)
     decoder = build_decoder(args, alphabet)
 

@@ -7,9 +7,11 @@ Usage:
 
 Flags of paths not ported yet (data parallelism and tensor parallelism,
 the device-resident corpus, augmentation, the profiler) parse and then
-raise NotImplementedError naming their ROADMAP.md item. ``--rnn-impl``
-and ``--ctc-impl`` are recorded in the checkpoint; the port runs one
-BiGRU and one CTC function whatever they name.
+raise NotImplementedError naming their ROADMAP.md item. ``--rnn-type``
+and ``--rnn-impl`` pick the recurrent kernel (``gru`` runs K1 under
+``scan``/``pallas`` and K5 under ``pallas2``; ``lstm`` runs K4);
+``--ctc-impl`` is recorded in the checkpoint, and the port runs one CTC
+function whatever it names.
 """
 
 from __future__ import annotations

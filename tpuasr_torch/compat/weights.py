@@ -5,7 +5,9 @@ as nested dicts of numpy arrays with the flax module names
 (``conv{i}/Conv_0/kernel``, ``rnn{i}/bi/recurrent_kernel``,
 ``head_bn``, ``head/kernel``, ...). ``from_jax_variables`` turns such a
 tree into a state dict of ``tpuasr_torch.model.ds2.DeepSpeech2``, so a
-checkpoint trained by the JAX package serves and trains unchanged;
+checkpoint trained by the JAX package serves and trains unchanged (GRU
+and LSTM alike: both keep their recurrent weights under the same names,
+(2, H_in, G*H) and (2, H, G*H) with G = 3 or 4, whatever the rnn_impl);
 ``to_jax_variables`` is its inverse. ``init_variables`` builds a seeded
 tree of the same shape without JAX (random statistics, for serving
 tests); ``init_train_variables`` draws a fresh model from flax's init
@@ -21,6 +23,7 @@ import torch
 
 from tpuasr_torch.model.ds2 import (
     CONV_SPECS,
+    GATES,
     DeepSpeech2,
     ModelConfig,
     conv_out_features,
@@ -149,7 +152,7 @@ def init_variables(cfg: ModelConfig, seed: int = 0) -> dict:
     numpy arrays (LeCun-normal kernels, small random biases and BN
     statistics), made without JAX."""
     rng = np.random.RandomState(seed)
-    g = 3 * cfg.hidden_size
+    g = GATES[cfg.rnn_type] * cfg.hidden_size
 
     def normal(shape, fan_in, scale=1.0):
         return (rng.standard_normal(shape) * scale / np.sqrt(fan_in)).astype(np.float32)
@@ -233,7 +236,7 @@ def init_train_variables(cfg: ModelConfig, seed: int = 0) -> dict:
     kernels, zero biases, BatchNorm scale 1 and bias 0, statistics 0 and
     1. Seeded numpy, so the values are not flax's own."""
     rng = np.random.RandomState(seed)
-    g = 3 * cfg.hidden_size
+    g = GATES[cfg.rnn_type] * cfg.hidden_size
     params: dict = {}
     stats: dict = {}
 

@@ -1,21 +1,40 @@
 """Deep Speech 2 acoustic model (port of ``tpuasr/model/ds2.py``).
 
-Two masked conv + BatchNorm + HardTanh blocks, bidirectional GRU
-layers with the directions summed and a BatchNorm before every layer
-but the first, then a BatchNorm + Linear head. ``forward(..., train)``
-selects BatchNorm's mode: batch statistics over valid positions (and
-an update of the running statistics) in training, running statistics
-in evaluation. Numerics follow the JAX package's ``rnn_impl="pallas"``
-path: activations in ``compute_dtype`` with f32 parameters and f32
-BatchNorm math, the GRU time loop in ``tpuasr_torch.ops.gru`` (through
-its autograd function whenever grad is enabled).
+Two masked conv + BatchNorm + HardTanh blocks, bidirectional recurrent
+layers (GRU or LSTM) with the directions summed and a BatchNorm before
+every layer but the first, then a BatchNorm + Linear head.
+``forward(..., train)`` selects BatchNorm's mode: batch statistics over
+valid positions (and an update of the running statistics) in training,
+running statistics in evaluation. Numerics follow the JAX package's
+``rnn_impl="pallas"`` path: activations in ``compute_dtype`` with f32
+parameters and f32 BatchNorm math, and the time loop in a fused kernel,
+through its autograd function whenever grad is enabled.
+
+Which kernel runs the time loop:
+
+  =====================  ==========================================
+  rnn_type + rnn_impl    kernel (``tpuasr_torch.ops``)
+  =====================  ==========================================
+  gru + scan | pallas    K1, ``gru.bigru_forward`` / ``BiGRUFunction``
+  gru + pallas2          K5, ``gru2.bigru2_forward`` / ``BiGRU2Function``
+                         (gate-major projections and weights)
+  lstm + any impl        K4, ``lstm.bilstm_forward`` / ``BiLSTMFunction``
+  rnn (vanilla)          NotImplementedError (ROADMAP.md)
+  unidirectional         NotImplementedError (ROADMAP.md)
+  =====================  ==========================================
+
+``lstm`` runs K4 under every impl and ``gru`` + ``scan`` runs K1: the
+port follows the ``pallas`` numerics for every impl (the JAX package
+runs ``scan``, and ``lstm`` + ``pallas2``, through ``lax.scan``).
 
 Layout notes. Activations keep the JAX package's (B, T, F, C) order at
 module boundaries: the convs run in PyTorch's (B, C, T, F) and are
 permuted back before the feature-major ``f * C + c`` flatten, so
 weights carry over unchanged. Parameters keep the flax names and
 layouts (``compat.weights`` maps a flax tree onto them), except the
-conv kernels, which are stored as PyTorch's (out, in, kT, kF).
+conv kernels, which are stored as PyTorch's (out, in, kT, kF); the
+pallas2 path relays the (2, H, 3H) recurrent kernel out gate-major at
+each call, so its gradient flows back to the same parameter.
 """
 
 from __future__ import annotations
@@ -27,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuasr_torch.ops.gru import BiGRUFunction, bigru_forward
+from tpuasr_torch.ops.gru2 import BiGRU2Function, bigru2_forward
+from tpuasr_torch.ops.lstm import BiLSTMFunction, bilstm_forward
 
 # (kernel_t, kernel_f, stride_t, stride_f, pad_t, pad_f) per conv layer.
 CONV_SPECS = (
@@ -35,6 +56,8 @@ CONV_SPECS = (
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+GATES = {"gru": 3, "lstm": 4}  # gate blocks of H per recurrent weight
+RNN_IMPLS = ("scan", "pallas", "pallas2")
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
 
@@ -54,8 +77,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     rnn_unroll: int = 1
-    # kept for checkpoint round trips: the port runs one GRU kernel
-    # whichever of scan | pallas | pallas2 the checkpoint names
+    # scan | pallas: K1 for a GRU; pallas2: K5 (gate-major); K4 for an
+    # LSTM under every impl (the module docstring's table)
     rnn_impl: str = "scan"
     bn_mask_mode: str = "masked"
 
@@ -107,14 +130,18 @@ def _time_mask(lengths: torch.Tensor, t_max: int) -> torch.Tensor:
 
 
 def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.rnn_type != "gru":
+    if cfg.rnn_type == "rnn":
         raise NotImplementedError(
-            f"rnn_type={cfg.rnn_type!r} is not ported yet "
-            "(ROADMAP.md: K4 BiLSTM kernel and the vanilla RNN)")
+            "rnn_type='rnn' (the vanilla RNN) is not ported yet (ROADMAP.md: "
+            "vanilla RNN, unidirectional, Lookahead and streaming)")
+    if cfg.rnn_type not in GATES:
+        raise ValueError(f"unknown rnn_type {cfg.rnn_type!r}")
     if not cfg.bidirectional:
         raise NotImplementedError(
             "unidirectional models are not ported yet "
             "(ROADMAP.md: unidirectional, Lookahead and streaming)")
+    if cfg.rnn_impl not in RNN_IMPLS:
+        raise ValueError(f"unknown rnn_impl {cfg.rnn_impl!r}")
     if cfg.bn_mask_mode not in ("masked", "reference"):
         raise ValueError(f"unknown bn_mask_mode {cfg.bn_mask_mode!r}")
 
@@ -186,44 +213,61 @@ class MaskedConvBlock(nn.Module):
 
 
 class BiRecurrentCore(nn.Module):
-    """Both GRU directions in one fused time loop (``bigru_forward``, or
-    ``BiGRUFunction`` when grad is enabled); direction 1 consumes the
-    time-flipped input."""
+    """Both directions in one fused time loop (the kernel of the module
+    docstring's table: the wrapper, or its autograd function when grad
+    is enabled); direction 1 consumes the time-flipped input."""
 
-    def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype):
+    def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype,
+                 rnn_type: str = "gru", rnn_impl: str = "scan"):
         super().__init__()
-        g = 3 * hidden
+        g = GATES[rnn_type] * hidden
         self.dtype = compute_dtype
+        self.hidden = hidden
+        self.rnn_type = rnn_type
+        self.gate_major = rnn_type == "gru" and rnn_impl == "pallas2"
         self.input_kernel = nn.Parameter(torch.zeros(2, h_in, g))
         self.input_bias = nn.Parameter(torch.zeros(2, g))
         self.recurrent_kernel = nn.Parameter(torch.zeros(2, hidden, g))
         self.recurrent_bias = nn.Parameter(torch.zeros(2, g))
 
     def forward(self, x, x_flip, mask_fwd, mask_bwd):
-        dt = self.dtype
+        dt, h = self.dtype, self.hidden
+        grad = torch.is_grad_enabled()
         xs = torch.stack([x, x_flip], dim=0).to(dt)  # (2, B, T, H_in)
-        xg = (torch.einsum("dbti,dig->tdbg", xs, self.input_kernel.to(dt))
-              + self.input_bias.to(dt)[None, :, None, :])  # (T, 2, B, 3H)
         mask = torch.stack([mask_fwd, mask_bwd], dim=0)  # (2, B, T)
-        gru = BiGRUFunction.apply if torch.is_grad_enabled() else bigru_forward
-        ys = gru(
-            xg.contiguous(), self.recurrent_kernel.to(dt).contiguous(),
-            self.recurrent_bias.to(torch.float32).contiguous(),
-            mask.permute(2, 0, 1).to(torch.float32).contiguous(),
-        )  # (T, 2, B, H)
+        mask_t = mask.permute(2, 0, 1).to(torch.float32).contiguous()
+        if self.gate_major:  # K5: tpuasr/model/ds2.py:436-445
+            w_x = self.input_kernel.to(dt).reshape(2, -1, 3, h)
+            xg = (torch.einsum("dbti,digh->tdgbh", xs, w_x)
+                  + self.input_bias.to(dt).reshape(2, 3, h)[None, :, :, None, :])
+            w_h = self.recurrent_kernel.reshape(2, h, 3, h).permute(0, 2, 1, 3)
+            ys = (BiGRU2Function.apply if grad else bigru2_forward)(
+                xg.contiguous(), w_h.to(dt).contiguous(),
+                self.recurrent_bias.reshape(2, 3, h).to(torch.float32).contiguous(),
+                mask_t)  # (T, 2, B, H)
+        else:
+            xg = (torch.einsum("dbti,dig->tdbg", xs, self.input_kernel.to(dt))
+                  + self.input_bias.to(dt)[None, :, None, :])  # (T, 2, B, G*H)
+            args = (xg.contiguous(), self.recurrent_kernel.to(dt).contiguous(),
+                    self.recurrent_bias.to(torch.float32).contiguous(), mask_t)
+            if self.rnn_type == "lstm":  # K4
+                ys = BiLSTMFunction.apply(*args) if grad else bilstm_forward(*args)[0]
+            else:  # K1
+                ys = (BiGRUFunction.apply if grad else bigru_forward)(*args)
         ys = ys.permute(1, 2, 0, 3)  # (2, B, T, H)
         return ys[0], ys[1]
 
 
 class BatchRNN(nn.Module):
-    """BN (all but the first layer) -> bidirectional GRU, directions
-    summed."""
+    """BN (all but the first layer) -> bidirectional GRU or LSTM,
+    directions summed."""
 
     def __init__(self, h_in: int, hidden: int, batch_norm: bool,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, rnn_type: str = "gru",
+                 rnn_impl: str = "scan"):
         super().__init__()
         self.bn = MaskedBatchNorm(h_in) if batch_norm else None
-        self.bi = BiRecurrentCore(h_in, hidden, compute_dtype)
+        self.bi = BiRecurrentCore(h_in, hidden, compute_dtype, rnn_type, rnn_impl)
 
     def forward(self, x, lengths, train: bool = False):
         mask = _time_mask(lengths, x.shape[1])
@@ -253,7 +297,8 @@ class DeepSpeech2(nn.Module):
         h_in = conv_out_features(cfg.n_features, cfg.conv_channels)
         self.rnns = nn.ModuleList(
             BatchRNN(h_in if i == 0 else cfg.hidden_size, cfg.hidden_size,
-                     batch_norm=i > 0, compute_dtype=dt)
+                     batch_norm=i > 0, compute_dtype=dt,
+                     rnn_type=cfg.rnn_type, rnn_impl=cfg.rnn_impl)
             for i in range(cfg.hidden_layers))
         self.head_bn = MaskedBatchNorm(cfg.hidden_size)
         self.head_kernel = nn.Parameter(torch.zeros(cfg.hidden_size, cfg.n_classes))

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded through ``ctypes``. The
 build happens at first use, from the repository's sources only, into
-``<repo>/build/``; the library's file name carries a hash of its source
-and flags, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time.
+``<repo>/build/``; the library's file name carries a hash of its source,
+of the local headers it includes (``#include "x.cuh"``, followed
+recursively) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,10 +45,30 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, recursively,
+    in the order first met."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -21,242 +21,18 @@
 // (33 us at 3.35 TB/s) — operations bound it. The time loop is strictly
 // sequential, though, and one step is far too small to fill the card.
 //
-// Design (the simple first version). One launch per time step covers
-// both directions; the stream orders the steps, and step t reads
-// ys[t-1] as its h, so no block exchanges anything within a step. A
-// block owns JB hidden units of one direction for BB batch rows and
-// computes their three gate columns (j, H+j, 2H+j) in f32 on the CUDA
-// cores. It stages h_{t-1} for its rows in shared memory as f32 (51 KB
-// of bf16 at B=32, H=800; up to KC_MAX columns at a time) and splits
-// the reduction over k across its 8 warps, so each SM keeps two warps
-// per scheduler busy. A lane owns one unit and every other row of the
-// block (16 rows x 3 gates = 48 accumulators), reads its w_h values
-// straight from L2 (7.7 MB at H=800 bf16 fits the 50 MB L2), one group
-// of KG columns ahead, and h as float4 along k; the warps' partial sums
-// meet in shared memory, and the gate math then needs no further
-// exchange. Its FMAs alone would take ~5 us a step on 100 SMs; on an
+// Design (the simple first version; rnn.cuh holds the body it shares
+// with K5f and K4f). One launch per time step covers both directions;
+// the stream orders the steps, and step t reads ys[t-1] as its h, so no
+// block exchanges anything within a step. A block owns 16 hidden units
+// of one direction for 32 batch rows: h_{t-1} staged in shared memory as
+// f32, the k reduction split over 8 warps, w_h read from L2, CUDA-core
+// f32 FMAs. Its FMAs alone would take ~5 us a step on 100 SMs; on an
 // H100 a step takes ~29 us (PERF.md). Left for later: a persistent
 // kernel with w_h pinned in shared memory across the SMs, a grid
 // barrier per step, and tensor-core products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-
-namespace {
-
-constexpr int JB = 16;                 // hidden units per block (lane % JB)
-constexpr int BB = 32;                 // batch rows per block
-constexpr int RB = BB / 2;             // rows per lane: rows lane / JB + 2i
-constexpr int NWARPS = 8;              // warps splitting the k reduction
-constexpr int NTHREADS = 32 * NWARPS;  // 256
-constexpr int KG = 8;                  // k values per group (two float4 of h)
-constexpr int KC_MAX = 1024;           // h columns staged at once
-constexpr int PAD = 4;                 // floats of padding per staged h row
-constexpr int SV = 32;                 // staging loads in flight per lane
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// h columns staged per pass: H rounded up to whole groups for every
-// warp, at most KC_MAX.
-int staged_columns(int H) {
-  const int unit = KG * NWARPS;
-  const int kc = (H + unit - 1) / unit * unit;
-  return kc < KC_MAX ? kc : KC_MAX;
-}
-
-// Dynamic shared memory: the staged h, later reused for the partial sums.
-size_t smem_bytes(int kc) {
-  const size_t hs = static_cast<size_t>(BB) * (kc + PAD) * sizeof(float);
-  const size_t red = static_cast<size_t>(NWARPS) * 3 * BB * JB * sizeof(float);
-  return hs > red ? hs : red;
-}
-
-// The block's w_h values for k .. k + KG - 1 at unit j, gates r, z, n;
-// zero past H.
-template <typename T>
-__device__ __forceinline__ void load_w(float (&w)[KG][3], const T* w_d, int k,
-                                       int j, int H) {
-  const int G = 3 * H;
-#pragma unroll
-  for (int q = 0; q < KG; ++q) {
-    const bool ok = k + q < H && j < H;
-    const T* p = w_d + static_cast<size_t>(ok ? k + q : 0) * G + (ok ? j : 0);
-    w[q][0] = ok ? to_f32(p[0]) : 0.0f;
-    w[q][1] = ok ? to_f32(p[H]) : 0.0f;
-    w[q][2] = ok ? to_f32(p[2 * H]) : 0.0f;
-  }
-}
-
-// One time step. grid = (ceil(H/JB), ceil(B/BB), D), block = NTHREADS,
-// dynamic shared memory smem_bytes(kc), kc = staged_columns(H).
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-bigru_fwd_step(const T* __restrict__ xg,      // (D, B, 3H) of step t
-               const T* __restrict__ w_h,     // (D, H, 3H)
-               const float* __restrict__ b_h, // (D, 3H)
-               const float* __restrict__ m_t, // (D, B) of step t
-               const T* __restrict__ h_prev,  // (D, B, H) of t-1; null at t=0
-               T* __restrict__ h_out,         // (D, B, H) of step t
-               int B, int H, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  float* hs = smem;   // hs[row * (kc + PAD) + kk]: h_{t-1} in f32
-  float* red = smem;  // red[((warp * 3 + g) * BB + row) * JB + u], after
-
-  const int d = blockIdx.z;
-  const int j0 = blockIdx.x * JB;
-  const int b0 = blockIdx.y * BB;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int u = lane % JB;    // this lane's unit within the block
-  const int par = lane / JB;  // this lane's rows: par, par + 2, ...
-  const int G = 3 * H;
-  const int stride = kc + PAD;
-  const T* w_d = w_h + static_cast<size_t>(d) * H * G;
-  const T* hp_d =
-      h_prev == nullptr ? nullptr : h_prev + static_cast<size_t>(d) * B * H;
-
-  if (hp_d != nullptr) {  // h_0 = 0: the product vanishes at t = 0
-    float acc[RB][3];
-#pragma unroll
-    for (int i = 0; i < RB; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
-
-    const int kw = kc / NWARPS;  // this warp's columns of a pass
-    for (int k0 = 0; k0 < H; k0 += kc) {
-      // stage h_{t-1}[b0 + row, k0 + kk], zero past B and H; a warp per
-      // row at a time, lanes along k (coalesced), SV loads in flight
-      for (int row = warp; row < BB; row += NWARPS) {
-        const int b = b0 + row;
-        const T* src = hp_d + static_cast<size_t>(b < B ? b : 0) * H;
-        for (int kk0 = 0; kk0 < kc; kk0 += 32 * SV) {
-          float v[SV];
-#pragma unroll
-          for (int q = 0; q < SV; ++q) {
-            const int kk = kk0 + 32 * q + lane, k = k0 + kk;
-            v[q] = (b < B && kk < kc && k < H) ? to_f32(src[k]) : 0.0f;
-          }
-#pragma unroll
-          for (int q = 0; q < SV; ++q) {
-            const int kk = kk0 + 32 * q + lane;
-            if (kk < kc) hs[row * stride + kk] = v[q];
-          }
-        }
-      }
-      __syncthreads();
-
-      const int kb = warp * kw, ke = kb + kw;
-      float wn[KG][3];
-      load_w(wn, w_d, k0 + kb, j0 + u, H);
-      for (int kk = kb; kk < ke; kk += KG) {
-        float w[KG][3];
-#pragma unroll
-        for (int q = 0; q < KG; ++q) {
-          w[q][0] = wn[q][0];
-          w[q][1] = wn[q][1];
-          w[q][2] = wn[q][2];
-        }
-        if (kk + KG < ke) load_w(wn, w_d, k0 + kk + KG, j0 + u, H);
-#pragma unroll
-        for (int i = 0; i < RB; ++i) {
-          float hv[KG];
-#pragma unroll
-          for (int q = 0; q < KG; q += 4) {
-            const float4 h4 = *reinterpret_cast<const float4*>(
-                &hs[(par + 2 * i) * stride + kk + q]);
-            hv[q] = h4.x, hv[q + 1] = h4.y, hv[q + 2] = h4.z, hv[q + 3] = h4.w;
-          }
-#pragma unroll
-          for (int q = 0; q < KG; ++q) {
-            acc[i][0] = fmaf(hv[q], w[q][0], acc[i][0]);
-            acc[i][1] = fmaf(hv[q], w[q][1], acc[i][1]);
-            acc[i][2] = fmaf(hv[q], w[q][2], acc[i][2]);
-          }
-        }
-      }
-      __syncthreads();  // hs is restaged, or reused for red, next
-    }
-
-#pragma unroll
-    for (int i = 0; i < RB; ++i) {
-      const int row = par + 2 * i;
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        red[((warp * 3 + g) * BB + row) * JB + u] = acc[i][g];
-    }
-    __syncthreads();
-  }
-
-  // gates: a thread per (row, unit) of the block
-  const float* bh = b_h + static_cast<size_t>(d) * G;
-  for (int p = tid; p < BB * JB; p += NTHREADS) {
-    const int row = p / JB, uu = p % JB;
-    const int b = b0 + row, j = j0 + uu;
-    if (b >= B || j >= H) continue;
-    float s[3] = {bh[j], bh[H + j], bh[2 * H + j]};
-    float h = 0.0f;
-    if (hp_d != nullptr) {
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g) s[g] += red[((w * 3 + g) * BB + row) * JB + uu];
-      }
-      h = to_f32(hp_d[static_cast<size_t>(b) * H + j]);
-    }
-    const size_t r = static_cast<size_t>(d) * B + b;
-    const T* x = xg + r * G;
-    const float rg = sigmoid_f32(to_f32(x[j]) + s[0]);
-    const float zg = sigmoid_f32(to_f32(x[H + j]) + s[1]);
-    const float ng = tanhf(to_f32(x[2 * H + j]) + rg * s[2]);
-    const float h_new = (1.0f - zg) * ng + zg * h;
-    const float m = m_t[r];
-    h_out[r * H + j] = from_f32<T>(m * h_new + (1.0f - m) * h);
-  }
-}
-
-template <typename T>
-int launch_all(const void* xg, const void* w_h, const float* b_h,
-               const float* mask, void* ys, int T_len, int D, int B, int H,
-               cudaStream_t stream) {
-  const int kc = staged_columns(H);
-  const size_t smem = smem_bytes(kc);
-  cudaError_t err = cudaFuncSetAttribute(
-      bigru_fwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((H + JB - 1) / JB, (B + BB - 1) / BB, D);
-  const size_t x_step = static_cast<size_t>(D) * B * 3 * H;
-  const size_t y_step = static_cast<size_t>(D) * B * H;
-  const T* x = static_cast<const T*>(xg);
-  T* y = static_cast<T*>(ys);
-  for (int t = 0; t < T_len; ++t) {
-    bigru_fwd_step<T><<<grid, NTHREADS, smem, stream>>>(
-        x + t * x_step, static_cast<const T*>(w_h), b_h,
-        mask + static_cast<size_t>(t) * D * B,
-        t == 0 ? nullptr : y + (t - 1) * y_step, y + t * y_step, B, H, kc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "rnn.cuh"
 
 extern "C" {
 
@@ -265,11 +41,16 @@ extern "C" {
 int tpuasr_bigru_fwd(const void* xg, const void* w_h, const float* b_h,
                      const float* mask, void* ys, int T_len, int D, int B,
                      int H, int dtype, void* stream) {
+  using namespace tpuasr_rnn;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t h = H;
+  const GateStrides xs{B * 3 * h, 3 * h, h};  // (D, B, 3H)
+  const WLayout wl{3 * H, H};                 // (H, 3H)
   if (dtype == 0)
-    return launch_all<float>(xg, w_h, b_h, mask, ys, T_len, D, B, H, s);
+    return gru_fwd_all<float>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D, B, H, s);
   if (dtype == 1)
-    return launch_all<__nv_bfloat16>(xg, w_h, b_h, mask, ys, T_len, D, B, H, s);
+    return gru_fwd_all<__nv_bfloat16>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D,
+                                      B, H, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

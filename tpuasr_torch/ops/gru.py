@@ -31,7 +31,7 @@ import torch
 
 from tpuasr_torch.ops import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def bigru_reference(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
@@ -114,19 +114,42 @@ def bigru_backward_reference(xg: torch.Tensor, w_h: torch.Tensor,
     return packed
 
 
-def _check(xg, w_h, b_h, mask):
-    if xg.dim() != 4:
-        raise ValueError(f"xg must be (T, D, B, 3H), got {tuple(xg.shape)}")
-    t_len, nd, b, g3 = xg.shape
-    h = w_h.shape[1] if w_h.dim() == 3 else -1
-    want = {"w_h": (nd, h, 3 * h), "b_h": (nd, 3 * h), "mask": (t_len, nd, b)}
-    if nd not in (1, 2) or g3 != 3 * h:
+def shift_time(x: torch.Tensor) -> torch.Tensor:
+    """x one step later along time (axis 0), zero at t = 0: the previous
+    states h_{t-1} (and the LSTM's c_{t-1}) that the backward kernels
+    read."""
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+
+
+def check_inputs(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+                 mask: torch.Tensor, n_gates: int = 3,
+                 gate_major: bool = False) -> int:
+    """Raise unless the fused RNN kernels take these inputs; returns H.
+    Layouts: xg (T, D, B, n_gates*H), w_h (D, H, n_gates*H), b_h
+    (D, n_gates*H); gate-major xg (T, D, n_gates, B, H), w_h
+    (D, n_gates, H, H), b_h (D, n_gates, H); mask (T, D, B); D in (1, 2);
+    xg and w_h f32 or bf16 alike, b_h and mask f32, all contiguous on
+    xg's device."""
+    g = n_gates
+    if xg.dim() != (5 if gate_major else 4):
+        layout = f"(T, D, {g}, B, H)" if gate_major else f"(T, D, B, {g}H)"
+        raise ValueError(f"xg must be {layout}, got {tuple(xg.shape)}")
+    if gate_major:
+        t_len, nd, _, b, _ = xg.shape
+        h = w_h.shape[-1] if w_h.dim() == 4 else -1
+        want = {"xg": (t_len, nd, g, b, h), "w_h": (nd, g, h, h), "b_h": (nd, g, h)}
+    else:
+        t_len, nd, b, _ = xg.shape
+        h = w_h.shape[1] if w_h.dim() == 3 else -1
+        want = {"xg": (t_len, nd, b, g * h), "w_h": (nd, h, g * h), "b_h": (nd, g * h)}
+    if nd not in (1, 2) or tuple(xg.shape) != want["xg"]:
         raise ValueError(f"xg {tuple(xg.shape)} does not match w_h "
-                         f"{tuple(w_h.shape)}: need D in (1, 2) and 3H")
+                         f"{tuple(w_h.shape)}: need D in (1, 2) and {g} gates of H")
+    want["mask"] = (t_len, nd, b)
     for name, t in (("w_h", w_h), ("b_h", b_h), ("mask", mask)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
-    if xg.dtype not in _DTYPE_CODE or w_h.dtype != xg.dtype:
+    if xg.dtype not in DTYPE_CODE or w_h.dtype != xg.dtype:
         raise TypeError(f"xg and w_h must share float32 or bfloat16, got "
                         f"{xg.dtype} and {w_h.dtype}")
     if b_h.dtype != torch.float32 or mask.dtype != torch.float32:
@@ -136,25 +159,39 @@ def _check(xg, w_h, b_h, mask):
             raise ValueError(f"{name} is on {t.device}, xg on {xg.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return h
+
+
+def check_states(xg: torch.Tensor, shape: tuple, **states: torch.Tensor) -> None:
+    """Raise unless every named tensor has ``shape`` and is contiguous,
+    in xg's dtype and on xg's device (the backward kernels' per-step
+    inputs)."""
+    for name, t in states.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != xg.dtype:
+            raise TypeError(f"{name} must be {xg.dtype}, got {t.dtype}")
+        if t.device != xg.device:
+            raise ValueError(f"{name} is on {t.device}, xg on {xg.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 @functools.cache
-def _lib(name: str = "bigru_fwd") -> ctypes.CDLL:
-    """A kernel's library (built on first use) with its C signatures."""
+def kernel_library(name: str) -> ctypes.CDLL:
+    """The library of a GRU kernel, ``bigru[2]_fwd`` or ``bigru[2]_bwd``
+    (built on first use), with its C signature; K1 and K5 share theirs."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "bigru_fwd":
-        lib.tpuasr_bigru_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        lib.tpuasr_bigru_fwd.restype = ctypes.c_int
-    else:
-        lib.tpuasr_bigru_bwd.argtypes = [p] * 10 + [i] * 5 + [p]
-        lib.tpuasr_bigru_bwd.restype = ctypes.c_int
+    fn = getattr(lib, f"tpuasr_{name}")
+    fn.argtypes = [p] * 5 + [i] * 5 + [p] if name.endswith("fwd") else [p] * 10 + [i] * 5 + [p]
+    fn.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _raise_on(lib, err: int, what: str) -> None:
+def raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.tpuasr_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
@@ -173,19 +210,18 @@ def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
         return bigru_reference(xg, w_h, b_h, mask)
     if xg.device.type != "cuda":
         raise ValueError(f"bigru_forward runs on cuda or cpu, not {xg.device}")
-    _check(xg, w_h, b_h, mask)
-    t_len, nd, b, g3 = xg.shape
-    h = g3 // 3
+    h = check_inputs(xg, w_h, b_h, mask)
+    t_len, nd, b, _ = xg.shape
     ys = torch.empty((t_len, nd, b, h), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys
-    lib = _lib()
+    lib = kernel_library("bigru_fwd")
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         err = lib.tpuasr_bigru_fwd(
             xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            ys.data_ptr(), t_len, nd, b, h, _DTYPE_CODE[xg.dtype], stream)
-    _raise_on(lib, err, "bigru_fwd")
+            ys.data_ptr(), t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
+    raise_on(lib, err, "bigru_fwd")
     bigru_forward.launches += t_len
     return ys
 
@@ -207,18 +243,9 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
         return bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy)
     if xg.device.type != "cuda":
         raise ValueError(f"bigru_backward runs on cuda or cpu, not {xg.device}")
-    _check(xg, w_h, b_h, mask)
+    h = check_inputs(xg, w_h, b_h, mask)
     t_len, nd, b, g3 = xg.shape
-    h = g3 // 3
-    for name, t in (("h_prev", h_prev), ("dy", dy)):
-        if tuple(t.shape) != (t_len, nd, b, h):
-            raise ValueError(f"{name} must be {(t_len, nd, b, h)}, got {tuple(t.shape)}")
-        if t.dtype != xg.dtype:
-            raise TypeError(f"{name} must be {xg.dtype}, got {t.dtype}")
-        if t.device != xg.device:
-            raise ValueError(f"{name} is on {t.device}, xg on {xg.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_states(xg, (t_len, nd, b, h), h_prev=h_prev, dy=dy)
     packed = torch.empty((t_len, nd, b, 4 * h), dtype=xg.dtype, device=xg.device)
     if packed.numel() == 0:
         return packed
@@ -226,15 +253,15 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     carry = torch.empty((nd, b, h), **f32)  # dL/dh_t, zeroed by the kernel
     dhg = torch.empty((nd, b, g3), **f32)  # one step's [dr_pre, dz_pre, dhn] * m
     direct = torch.empty((nd, b, h), **f32)  # one step's dh * z * m or dh
-    lib = _lib("bigru_bwd")
+    lib = kernel_library("bigru_bwd")
     with torch.cuda.device(xg.device):
         stream = torch.cuda.current_stream(xg.device).cuda_stream
         err = lib.tpuasr_bigru_bwd(
             xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
             h_prev.data_ptr(), dy.data_ptr(), packed.data_ptr(),
             carry.data_ptr(), dhg.data_ptr(), direct.data_ptr(),
-            t_len, nd, b, h, _DTYPE_CODE[xg.dtype], stream)
-    _raise_on(lib, err, "bigru_bwd")
+            t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
+    raise_on(lib, err, "bigru_bwd")
     bigru_backward.launches += 2 * t_len
     return packed
 
@@ -262,7 +289,7 @@ class BiGRUFunction(torch.autograd.Function):
         xg, w_h, b_h, mask, ys = ctx.saved_tensors
         g3 = xg.shape[-1]
         h = g3 // 3
-        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]], dim=0)
+        h_prev = shift_time(ys)
         packed = bigru_backward(xg, w_h, b_h, mask, h_prev,
                                 dy.to(xg.dtype).contiguous())
         dxg = packed[..., :g3]

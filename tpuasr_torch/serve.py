@@ -4,9 +4,10 @@ Requests (WAV bytes or waves) land in a queue; one device worker drains
 up to ``max_batch`` of them within ``batch_window_ms``, pads the batch
 to ``max_batch`` rows and to a static duration bucket
 (``tpuasr_torch.data.buckets.BucketSpec``), runs the eval step (frontend
-+ DS2 with the Hopper BiGRU kernel) and decodes with the configured
-decoder: greedy by default, the host beam, or ``DeviceBeamDecoder``
-(one K3 launch per batch). Padding rows have length 0. Audio beyond ``max_seconds`` follows ``long_audio``:
++ DS2 with its Hopper RNN kernel: K1 or K5 for a GRU, K4 for an LSTM)
+and decodes with the configured decoder: greedy by default, the host
+beam, or ``DeviceBeamDecoder`` (one K3 launch per batch). Padding rows
+have length 0. Audio beyond ``max_seconds`` follows ``long_audio``:
 chunked long-form decode, reject, or explicit truncation.
 
 HTTP wrapper (``make_http_server``): POST /transcribe with a WAV body ->
@@ -16,6 +17,7 @@ come with the streaming slice.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import queue
@@ -52,14 +54,19 @@ class TranscriptionService:
     """Checkpoint -> ready-to-serve transcriber with micro-batching."""
 
     def __init__(self, model_path: str, cfg: ServeConfig | None = None,
-                 decoder=None, package=None, device: str = "cuda"):
+                 decoder=None, package=None, device: str = "cuda",
+                 rnn_impl: str | None = None):
+        """``rnn_impl`` overrides the checkpoint's (``pallas2`` runs a
+        GRU checkpoint through K5)."""
         self.device = resolve_device(device)
         self.cfg = cfg or ServeConfig()
         pkg = package if package is not None else load_checkpoint(model_path)
         self.alphabet = pkg.alphabet
         self.frontend_cfg = pkg.frontend_config
-        self.model = model_from_variables(pkg.variables, pkg.model_config,
-                                          self.device)
+        model_cfg = pkg.model_config
+        if rnn_impl:
+            model_cfg = dataclasses.replace(model_cfg, rnn_impl=rnn_impl)
+        self.model = model_from_variables(pkg.variables, model_cfg, self.device)
         # (waves, lengths) -> (logits, out_lengths) on the device
         self.eval_step = make_eval_step(self.model, self.frontend_cfg)
         self.decoder = decoder or GreedyDecoder(self.alphabet)
