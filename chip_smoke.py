@@ -29,7 +29,14 @@ non-zero without printing a result:
                and ragged tiles (the flagship cases hold a length-0
                row), each also through its whole autograd function; K5
                must equal K1 bit for bit on the relaid-out inputs; the
-               yardsticks are cuDNN nn.LSTM and nn.GRU.
+               yardsticks are cuDNN nn.LSTM and nn.GRU. The backward
+               kernels (K1b, K4b, K5b: an hg GEMM and one persistent
+               cooperative loop, two launches a call) also run the edges
+               of their launch plan (H=1760 with w_h partly in L2, B=96,
+               B=1, every row of length 0), must give bit-identical
+               results on two calls, and are timed whole and split into
+               the GEMM and the loop; cuDNN's backward is the median
+               and range of 5 timings of 10 calls.
   4. train   — the training main path: a synthetic 5 s corpus (64
                training and 32 validation utterances) and
                tpuasr_torch.cli.train.main on the full-width flagship
@@ -289,6 +296,36 @@ def cudnn_rnn_bwd_ms(xg, w_h, b_h, iters, n_gates=3):
     return time_ms(fwd_bwd, iters) - time_ms(fwd, iters)
 
 
+def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
+    """A backward kernel's time at (T, B, H, D) bf16: the whole call, its
+    two launches apart (CUDA events around the hg GEMM and the
+    persistent loop, means of 10 calls), the plain loop, cuDNN's backward
+    (median and range over 5 separate timings of 10 calls: it swings
+    between calls) and the bound."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+
+    ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
+    gru_mod.bwd_events = []
+    try:
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        events = gru_mod.bwd_events
+    finally:
+        gru_mod.bwd_events = None
+    split = {k: sum(e[k][0].elapsed_time(e[k][1]) for e in events) / len(events)
+             if events else None for k in ("hg", "loop")}  # no events: a CPU rehearsal
+    lib = sorted(cudnn_rnn_bwd_ms(*lib_args, iters=10, n_gates=n_gates) for _ in range(5))
+    bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=n_gates, backward=True)
+    return {"shape": [t, nd, b, h], "dtype": "bfloat16", "ms": ms,
+            "hg_gemm_ms": split["hg"], "loop_ms": split["loop"],
+            "plain_ms": time_ms(lambda: plain(*args), iters=2),
+            "library_ms": lib[len(lib) // 2], "library_ms_range": [lib[0], lib[-1]],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_fwd(name, got, want, dtype) -> dict:
     """The BiGRU forward tolerances (module docstring), for K1f, K4f and
     K5f; ``dtype`` by name."""
@@ -410,20 +447,25 @@ def phase_kernel_bwd():
 
     cuda = torch.device("cuda")
     results = []
-    cases = [  # (name, T, B, H, D, dtype)
-        ("train-5s-bf16", 251, 32, 800, 2, torch.bfloat16),
-        ("small-f32", 33, 9, 64, 2, torch.float32),
-        ("T7-D1-f32", 7, 5, 800, 1, torch.float32),
+    cases = [  # (name, T, B, H, D, dtype, lengths)
+        ("train-5s-bf16", 251, 32, 800, 2, torch.bfloat16, None),
+        ("small-f32", 33, 9, 64, 2, torch.float32, None),
+        ("T7-D1-f32", 7, 5, 800, 1, torch.float32, None),
+        *[(name, t, b, h, nd, getattr(torch, dt), lengths)
+          for name, t, b, h, nd, dt, lengths in BWD_EDGE_CASES],
     ]
-    for i, (name, t, b, h, nd, dtype) in enumerate(cases):
-        xg, w_h, b_h, mask = gru_case(t, b, h, nd, dtype, seed=20 + i, device=cuda)
+    for i, (name, t, b, h, nd, dtype, lengths) in enumerate(cases):
+        xg, w_h, b_h, mask = gru_case(t, b, h, nd, dtype, seed=20 + i, device=cuda,
+                                      lengths=lengths)
         h_prev = shift_time(bigru_reference(xg, w_h, b_h, mask))
         gen = torch.Generator(device=cuda).manual_seed(i)
         dy = torch.randn(h_prev.shape, generator=gen, device=cuda).to(dtype)
         packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)
         torch.cuda.synchronize()
+        check(torch.equal(packed, bigru_backward(xg, w_h, b_h, mask, h_prev, dy)),
+              f"bigru_bwd {name}: two calls differ")
         dt = str(dtype).split(".")[1]
-        row = {"case": name, "shape": [t, nd, b, h], "dtype": dt,
+        row = {"case": name, "shape": [t, nd, b, h], "dtype": dt, "deterministic": True,
                **check_bwd(f"bigru_bwd {name}", packed,
                            bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy), dt),
                # the whole function: kernels vs plain versions
@@ -439,13 +481,8 @@ def phase_kernel_bwd():
         h_prev = shift_time(bigru_reference(xg, w_h, b_h, mask))
         dy = (0.1 * torch.randn(h_prev.shape, device=cuda)).to(torch.bfloat16)
         args = (xg, w_h, b_h, mask, h_prev, dy)
-        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, backward=True)
-        timings.append({
-            "shape": [t, nd, b, h], "dtype": "bfloat16",
-            "ms": time_ms(lambda: bigru_backward(*args), iters=10, warmup=2),
-            "plain_ms": time_ms(lambda: bigru_backward_reference(*args), iters=2),
-            "library_ms": cudnn_rnn_bwd_ms(xg, w_h, b_h, iters=10),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        timings.append(bwd_timing(bigru_backward, bigru_backward_reference, args,
+                                  (xg, w_h, b_h), t, b, h, nd))
         emit("kernel_time", kernel="bigru_bwd", **timings[-1])
     return results[0], timings
 
@@ -460,13 +497,24 @@ NEW_RNN_CASES = [
     ("T7-D1-f32", 7, 5, 800, 1, "float32", None),
     ("ragged-tiles-f32", 33, 9, 100, 2, "float32", None),
 ]
+# the backward's launch plan at its edges (tpuasr_torch/ops/rnn_plan.py):
+# w_h rows partly read from L2 (H=1760), three row tiles (B=96), one row,
+# every frame masked; K1b, K4b and K5b run them too
+BWD_EDGE_CASES = [
+    ("H1760-T3-bf16", 3, 32, 1760, 2, "bfloat16", None),
+    ("B96-f32", 5, 96, 100, 2, "float32", None),
+    ("B96-bf16", 5, 96, 100, 2, "bfloat16", None),
+    ("B1-bf16", 6, 1, 100, 2, "bfloat16", [6]),
+    ("len0-bf16", 6, 9, 100, 2, "bfloat16", [0] * 9),
+]
 
 
 # (T, B, H) of the kernels' times, D=2, bf16: the 5 s and 16.5 s buckets
 TIMING_SHAPES = ((251, 32, 800), (826, 32, 800))
 
 
-def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_SHAPES):
+def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
+                      timing_shapes=TIMING_SHAPES):
     """K4f (ys and cs) and K4b (dhg) against their plain loops, the whole
     BiLSTMFunction against plain forward + backward, then times beside
     cuDNN's nn.LSTM and the bounds. ``device``, ``cases`` and
@@ -500,6 +548,7 @@ def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_S
         dhg = bilstm_backward(*bwd_args)
         torch.cuda.synchronize()
         bwd = check_bwd(f"bilstm_bwd {name}", dhg, bilstm_backward_reference(*bwd_args), dt)
+        check(torch.equal(dhg, bilstm_backward(*bwd_args)), f"bilstm_bwd {name}: two calls differ")
         fn_err = function_vs_plain(BiLSTMFunction.apply, *args, dy, dt)
         rows.append({"case": name, "shape": [t, nd, b, h], "dtype": dt, "ys": fwd, "cs": fwd_c,
                      "dhg": bwd, "function_rel_norm_err": fn_err})
@@ -512,25 +561,24 @@ def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_S
         ys, cs = bilstm_reference(*args)
         dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
         bwd_args = (*args, shift_time(ys), shift_time(cs), cs, dy)
-        for kernel, fn, plain, lib, back in (
-                ("bilstm_fwd", bilstm_forward, bilstm_reference, cudnn_rnn_ms, False),
-                ("bilstm_bwd", bilstm_backward, bilstm_backward_reference, cudnn_rnn_bwd_ms,
-                 True)):
-            a = bwd_args if back else args
-            bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=4, backward=back)
-            timings[kernel].append({
-                "shape": [t, nd, b, h], "dtype": "bfloat16",
-                "ms": time_ms(lambda: fn(*a), iters=10, warmup=2),
-                "plain_ms": time_ms(lambda: plain(*a), iters=2),
-                "library_ms": lib(*args[:3], iters=10, n_gates=4),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-            emit("kernel_time", kernel=kernel, **timings[kernel][-1])
+        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=4)
+        timings["bilstm_fwd"].append({
+            "shape": [t, nd, b, h], "dtype": "bfloat16",
+            "ms": time_ms(lambda: bilstm_forward(*args), iters=10, warmup=2),
+            "plain_ms": time_ms(lambda: bilstm_reference(*args), iters=2),
+            "library_ms": cudnn_rnn_ms(*args[:3], iters=10, n_gates=4),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        emit("kernel_time", kernel="bilstm_fwd", **timings["bilstm_fwd"][-1])
+        timings["bilstm_bwd"].append(bwd_timing(bilstm_backward, bilstm_backward_reference,
+                                                bwd_args, args[:3], t, b, h, nd, n_gates=4))
+        emit("kernel_time", kernel="bilstm_bwd", **timings["bilstm_bwd"][-1])
     first = rows[0]
     return ({"bilstm_fwd": max(first["ys"]["max_abs_err"], first["cs"]["max_abs_err"]),
              "bilstm_bwd": first["dhg"]["max_abs_err"]}, timings)
 
 
-def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_SHAPES):
+def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
+                      timing_shapes=TIMING_SHAPES):
     """K5f and K5b against their plain loops, against K1f and K1b on the
     same relaid-out inputs (bit for bit: one compiled body), the whole
     BiGRU2Function against plain forward + backward, then times beside
@@ -570,6 +618,8 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_S
         bwd = check_bwd(f"bigru2_bwd {name}", dg,
                         bigru2_backward_reference(*k5, shift_time(ys), dy), dt)
         packed = bigru_backward(*k1, shift_time(ys), dy)
+        check(torch.equal(dg, bigru2_backward(*k5, shift_time(ys), dy)),
+              f"bigru2_bwd {name}: two calls differ")
         same_as_k1 = {
             "fwd": bool(torch.equal(ys, ys_k1)),
             "bwd": bool(torch.equal(dg, packed.reshape(t, nd, b, 4, h).permute(0, 1, 3, 2, 4)))}
@@ -587,19 +637,17 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES, timing_shapes=TIMING_S
         ys = bigru2_reference(*args)
         dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
         bwd_args = (*args, shift_time(ys), dy)
-        for kernel, fn, plain, lib, back in (
-                ("bigru2_fwd", bigru2_forward, bigru2_reference, cudnn_rnn_ms, False),
-                ("bigru2_bwd", bigru2_backward, bigru2_backward_reference, cudnn_rnn_bwd_ms,
-                 True)):
-            a = bwd_args if back else args
-            bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, backward=back)
-            timings[kernel].append({
-                "shape": [t, nd, b, h], "dtype": "bfloat16",
-                "ms": time_ms(lambda: fn(*a), iters=10, warmup=2),
-                "plain_ms": time_ms(lambda: plain(*a), iters=2),
-                "library_ms": lib(*k1[:3], iters=10),
-                "bound_ms": bound_ms, "bound_by": bound_by})
-            emit("kernel_time", kernel=kernel, **timings[kernel][-1])
+        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2)
+        timings["bigru2_fwd"].append({
+            "shape": [t, nd, b, h], "dtype": "bfloat16",
+            "ms": time_ms(lambda: bigru2_forward(*args), iters=10, warmup=2),
+            "plain_ms": time_ms(lambda: bigru2_reference(*args), iters=2),
+            "library_ms": cudnn_rnn_ms(*k1[:3], iters=10),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        emit("kernel_time", kernel="bigru2_fwd", **timings["bigru2_fwd"][-1])
+        timings["bigru2_bwd"].append(bwd_timing(bigru2_backward, bigru2_backward_reference,
+                                                bwd_args, k1[:3], t, b, h, nd))
+        emit("kernel_time", kernel="bigru2_bwd", **timings["bigru2_bwd"][-1])
     first = rows[0]
     return ({"bigru2_fwd": first["ys"]["max_abs_err"],
              "bigru2_bwd": first["dg"]["max_abs_err"]}, timings)

@@ -57,6 +57,7 @@ from tpuasr_torch.ops.ctc import (
     ctc_beta_reference,
 )
 from tpuasr_torch.ops.gru import (
+    BWD_LAUNCHES,
     BiGRUFunction,
     bigru_backward,
     bigru_backward_reference,
@@ -107,7 +108,8 @@ def test_library_name_follows_the_local_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.sources("bilstm_bwd")] == ["bilstm_bwd.cu", "rnn.cuh"]
+    assert [p.name for p in _build.sources("bilstm_bwd")] == ["bilstm_bwd.cu", "rnn_bwd.cuh",
+                                                              "rnn.cuh"]
     assert [p.name for p in _build.sources("ctc")] == ["ctc.cu"]
     before = {n: _build.library_path(n) for n in ("bigru_fwd", "bigru2_bwd", "ctc")}
     with open(csrc / "rnn.cuh", "a") as f:
@@ -116,6 +118,11 @@ def test_library_name_follows_the_local_headers(tmp_path, monkeypatch):
     assert after["bigru_fwd"] != before["bigru_fwd"]
     assert after["bigru2_bwd"] != before["bigru2_bwd"]
     assert after["ctc"] == before["ctc"]
+    with open(csrc / "rnn_bwd.cuh", "a") as f:  # the backward's header only
+        f.write("// edited\n")
+    again = {n: _build.library_path(n) for n in before}
+    assert again["bigru2_bwd"] != after["bigru2_bwd"]
+    assert again["bigru_fwd"] == after["bigru_fwd"]
 
 
 def test_build_without_nvcc_raises():
@@ -176,7 +183,7 @@ def test_backward_kernel_matches_reference(t, b, h, nd, dtype, cuda):  # noqa: F
     before = bigru_backward.launches
     packed = bigru_backward(*args)
     torch.cuda.synchronize()
-    assert bigru_backward.launches == before + 2 * t
+    assert bigru_backward.launches == before + BWD_LAUNCHES  # whatever T
     assert packed.shape == (t, nd, b, 4 * h) and packed.dtype == dtype
     want = bigru_backward_reference(*args).float()
     scale = want.abs().max().item()
@@ -243,7 +250,7 @@ def test_lstm_kernels_match_reference(t, b, h, nd, dtype, cuda):  # noqa: F811
     want = bilstm_backward_reference(*bwd)
     _assert_close(dhg, want, dtype, want.float().abs().max().item())
     assert (bilstm_forward.launches, bilstm_backward.launches) == (before[0] + t,
-                                                                   before[1] + 2 * t)
+                                                                   before[1] + BWD_LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -271,7 +278,7 @@ def test_gru2_kernels_match_reference_and_k1(t, b, h, nd, dtype, cuda):  # noqa:
     packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)  # K5b == K1b
     assert torch.equal(dg, packed.reshape(t, nd, b, 4, h).permute(0, 1, 3, 2, 4))
     assert (bigru2_forward.launches, bigru2_backward.launches) == (before[0] + t,
-                                                                   before[1] + 2 * t)
+                                                                   before[1] + BWD_LAUNCHES)
 
 
 @pytest.mark.cuda
@@ -318,6 +325,72 @@ def test_new_rnn_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
     with pytest.raises(TypeError):
         h_prev = xg5[:, :, 0].contiguous()
         bigru2_backward(xg5, w5, b5, mask, h_prev, h_prev.bfloat16())
+
+
+BWD_EDGE_CASES = [  # (T, B, H, D, lengths): the backward's plan at its edges
+    pytest.param(3, 32, 1760, 2, None, id="H1760"),  # w_h rows partly read from L2
+    pytest.param(5, 96, 100, 2, None, id="B96"),  # three row tiles
+    pytest.param(6, 1, 100, 2, None, id="B1"),
+    pytest.param(6, 9, 100, 2, [0] * 9, id="all-len0"),  # every frame masked
+    pytest.param(4, 9, 48, 1, None, id="D1"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h,nd,lengths", BWD_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_kernels_at_plan_edges(t, b, h, nd, lengths, dtype, cuda):  # noqa: F811
+    """K1b, K4b and K5b against their plain versions; K5b bit-equal to
+    K1b; each bit-identical over two calls (a race at the grid barrier
+    would show here)."""
+    rng = np.random.RandomState(t * 1000 + b + h)
+    xg, w_h, b_h, mask = [torch.from_numpy(a).to(cuda) for a in
+                          gru_inputs(rng, t, b, h, nd, lengths=lengths)]
+    xg, w_h = xg.to(dtype), w_h.to(dtype)
+    h_prev = _shift(bigru_reference(xg, w_h, b_h, mask))
+    dy = torch.from_numpy(rng.randn(t, nd, b, h).astype(np.float32)).to(cuda, dtype)
+    packed = bigru_backward(xg, w_h, b_h, mask, h_prev, dy)
+    torch.cuda.synchronize()
+    want = bigru_backward_reference(xg, w_h, b_h, mask, h_prev, dy)
+    _assert_close(packed, want, dtype, max(want.float().abs().max().item(), 1e-30))
+    assert torch.equal(packed, bigru_backward(xg, w_h, b_h, mask, h_prev, dy))
+    k5 = [torch.from_numpy(a).to(cuda) for a in
+          gate_major(xg.float().cpu().numpy(), w_h.float().cpu().numpy(), b_h.cpu().numpy())]
+    k5 = (k5[0].to(dtype), k5[1].to(dtype), k5[2], mask)
+    dg = bigru2_backward(*k5, h_prev, dy)
+    assert torch.equal(dg, packed.reshape(t, nd, b, 4, h).permute(0, 1, 3, 2, 4))
+    assert torch.equal(dg, bigru2_backward(*k5, h_prev, dy))
+
+    xg4, w4, b4, _ = [torch.from_numpy(a).to(cuda) for a in
+                      gru_inputs(rng, t, b, h, nd, lengths=lengths, n_gates=4)]
+    args = (xg4.to(dtype), w4.to(dtype), b4, mask)
+    ys, cs = bilstm_reference(*args)
+    bwd = (*args, _shift(ys), _shift(cs), cs, dy)
+    dhg = bilstm_backward(*bwd)
+    torch.cuda.synchronize()
+    want = bilstm_backward_reference(*bwd)
+    _assert_close(dhg, want, dtype, max(want.float().abs().max().item(), 1e-30))
+    assert torch.equal(dhg, bilstm_backward(*bwd))
+    if lengths is not None and not any(lengths):
+        assert not packed.any() and not dhg.any()
+
+
+@pytest.mark.cuda
+def test_backward_refuses_a_grid_that_is_not_co_resident(cuda, monkeypatch):  # noqa: F811
+    """A plan for more blocks than the card holds at once raises; it
+    never hangs and never falls back."""
+    import tpuasr_torch.ops.gru as gru_mod
+    from tpuasr_torch.ops import rnn_plan
+
+    real = rnn_plan.rnn_bwd_plan
+
+    def too_many(nd, b, h, n_gates, itemsize, n_sms, smem):
+        return real(nd, b, h, n_gates, itemsize, 4 * n_sms, smem)
+
+    monkeypatch.setattr(gru_mod, "rnn_bwd_plan", too_many)
+    args = _bwd_args(cuda, 3, 4, 1760, 2, torch.bfloat16)  # 220 slices: 220 blocks
+    with pytest.raises(RuntimeError, match="loop"):
+        bigru_backward(*args)
 
 
 def _ctc_case(device, t, b, s, seed=7):

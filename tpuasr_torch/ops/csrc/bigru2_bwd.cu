@@ -11,41 +11,45 @@
 //
 // Layouts (all contiguous): xg (T, D, 3, B, H), w_h (D, 3, H, H),
 // b_h (D, 3, H) f32, mask (T, D, B) f32, h_prev and dy (T, D, B, H) ->
-// dg (T, D, 4, B, H); scratch carry (D, B, H), dhg (D, B, 3H) and
-// direct (D, B, H), all f32.
+// dg (T, D, 4, B, H); scratch as K1b's.
 //
 // Bound: K1b's work, 125 us at T=251, B=32, H=800, D=2 on the bf16
 // tensor cores (operations).
 //
-// Design. K1b's compiled body (rnn.cuh: gru_bwd_gates, then
-// rnn_bwd_carry) with the gate-major strides for xg, w_h and dg: two
-// launches per reverse step, the same FMAs in the same order, so K5b
-// equals K1b bit for bit on the same weights.
+// Design. K1b's two kernels (rnn_bwd.cuh) with the gate-major strides for
+// xg, w_h and dg. The hg GEMM reads w_h through the layout's strides into
+// the same tiles, and the loop pins w_h's rows in K1's column order, so
+// every product and sum runs in K1b's order: K5b equals K1b bit for bit
+// on the same weights.
 
-#include "rnn.cuh"
+#include "rnn_bwd.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xg, w_h, h_prev, dy and dg share
-// it). Returns cudaGetLastError() after the launches.
-int tpuasr_bigru2_bwd(const void* xg, const void* w_h, const float* b_h,
-                      const float* mask, const void* h_prev, const void* dy,
-                      void* dg, float* carry, float* dhg, float* direct,
-                      int T_len, int D, int B, int H, int dtype, void* stream) {
+// As tpuasr_bigru_bwd_hg, for w_h (D, 3, H, H).
+int tpuasr_bigru2_bwd_hg(const void* h_prev, const void* w_h, const float* b_h, float* hg,
+                         int T_len, int D, int B, int H, int HP, int dtype, void* stream) {
   using namespace tpuasr_rnn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bwd_hg(h_prev, w_h, WLayout{H, H * H}, b_h, hg, T_len, D, B, H, 3, HP, dtype,
+                static_cast<cudaStream_t>(stream));
+}
+
+// As tpuasr_bigru_bwd_loop, for xg (T, D, 3, B, H), w_h (D, 3, H, H)
+// and dg (T, D, 4, B, H).
+int tpuasr_bigru2_bwd_loop(const void* xg, const void* w_h, const float* mask,
+                           const void* h_prev, const void* c_prev, const void* cs,
+                           const void* dy, const float* hg, void* dg, float* dhg,
+                           unsigned int* bar, const int* layout, int T_len, int D, int B,
+                           int H, int dtype, void* stream) {
+  using namespace tpuasr_rnn;
   const size_t h = H;
-  const GateStrides xs{3 * B * h, h, B * h};  // (D, 3, B, H)
-  const WLayout wl{H, H * H};                 // (3, H, H)
-  const GateStrides ps{4 * B * h, h, B * h};  // (D, 4, B, H)
-  if (dtype == 0)
-    return gru_bwd_all<float>(xg, xs, w_h, wl, b_h, mask, h_prev, dy, dg, ps,
-                              carry, dhg, direct, T_len, D, B, H, s);
-  if (dtype == 1)
-    return gru_bwd_all<__nv_bfloat16>(xg, xs, w_h, wl, b_h, mask, h_prev, dy,
-                                      dg, ps, carry, dhg, direct, T_len, D, B,
-                                      H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_loop<3>(xg, GateStrides{3 * B * h, h, B * h}, w_h, WLayout{H, H * H}, mask,
+                     h_prev, c_prev, cs, dy, hg, dg, GateStrides{4 * B * h, h, B * h}, dhg,
+                     bar, layout, T_len, D, B, H, dtype, static_cast<cudaStream_t>(stream));
+}
+
+int tpuasr_rnn_device_limits(int* n_sms, int* smem_optin) {
+  return tpuasr_rnn::device_limits(n_sms, smem_optin);
 }
 
 const char* tpuasr_cuda_error_string(int err) {

@@ -12,64 +12,63 @@
 //   packed_t = round([dr_pre, dz_pre, dn_pre, dhn] * m)   (xg's dtype)
 //   carry <- m (dhg @ w_h[d]^T + dh z m) + (1 - m) dh
 // so a masked frame passes dh through unchanged, and the product with
-// w_h^T is taken in f32 from the unrounded dhg (the TPU kernel's
-// dot_general of f32 dhg with bf16 w_h). h_{t-1} is the forward's ys
-// shifted by one step (h_0 = 0), given by the caller.
+// w_h^T is taken from the unrounded f32 dhg (the TPU kernel's dot_general
+// of f32 dhg with bf16 w_h; here bf16 hi + lo halves of dhg on the tensor
+// cores, ~2^-16 relative). h_{t-1} is the forward's ys shifted by one step
+// (h_0 = 0), given by the caller.
 //
 // Layouts (all contiguous): xg (T, D, B, 3H), w_h (D, H, 3H),
 // b_h (D, 3H) f32, mask (T, D, B) f32, h_prev and dy (T, D, B, H) ->
-// packed (T, D, B, 4H); scratch carry (D, B, H), dhg (D, B, 3H) and
-// direct (D, B, H), all f32. D in {1, 2}; any T, B, H. T is float or
-// __nv_bfloat16 (xg, w_h, h_prev, dy and packed share it).
+// packed (T, D, B, 4H); scratch hg (T, D, B, 3, HP) f32, dhg (2, D, B, GP)
+// 4-byte words zeroed (rnn_bwd.cuh: put_dhg), and a zeroed barrier
+// counter. D in {1, 2}; any T, B, H. T
+// is float or __nv_bfloat16 (xg, w_h, h_prev, dy and packed share it).
 //
-// Bound. Per step 2 (B x H) @ (H x 3H) products per direction (hg, then
-// dhg @ w_h^T): at the train shape (T=251, B=32, H=800, D=2) 123.4
-// GFLOP, 125 us on the bf16 tensor cores, against 239 MB of traffic
-// (71 us at 3.35 TB/s): operations bound it. As in the forward, the
-// time loop is strictly sequential and one step is far too small to
-// fill the card.
+// Bound. hg and dhg @ w_h^T, 2 (B x H) @ (H x 3H) products per step and
+// direction: at the train shape (T=251, B=32, H=800, D=2) 123.4 GFLOP,
+// 125 us on the bf16 tensor cores, against 239 MB of traffic (71 us at
+// 3.35 TB/s): operations bound it. hg (half of them) has no sequential
+// dependence; the carry product (the other half) is a chain of T small
+// products, each far too small to fill the card.
 //
-// Design (the simple first version; the body is rnn.cuh's, shared with
-// K5b and, for the carry product, K4b). Two launches per reverse time
-// step cover both directions, and the stream orders them, so no block
-// exchanges anything within a launch:
-//   A (gru_bwd_gates): a block owns 16 units of one direction for 32
-//     rows, recomputes hg's three columns of each unit from h_{t-1}
-//     staged in shared memory (the k reduction over 8 warps), then a
-//     thread per (row, unit) does the gate math and writes packed_t,
-//     dhg and direct = m dh z m + (1 - m) dh for the unit.
-//   B (rnn_bwd_carry): a block owns 16 units k for 32 rows, stages dhg
-//     and reduces over the gate axis, reading w_h[d, k, :] from L2; then
-//     carry[k] = sum + direct[k]. B reads nothing A reads from carry,
-//     so the carry is updated in place.
-// CUDA-core f32 FMAs throughout. Left for later: the persistent,
-// tensor-core redesign shared with K1f (ROADMAP.md).
+// Design (rnn_bwd.cuh, shared with K5b and K4b): two launches a call.
+// hg_gemm computes hg for every step at once on the tensor cores; then
+// one persistent cooperative launch runs the reverse loop, a block per
+// 16 units of a direction (100 blocks at the train shape), its 16 rows
+// of w_h (76.8 KB) and its carry pinned in shared memory, one grid
+// barrier a step between the gate math and the carry product.
 
-#include "rnn.cuh"
+#include "rnn_bwd.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xg, w_h, h_prev, dy and packed share
-// it). carry, dhg and direct are f32 scratch of (D, B, H), (D, B, 3H)
-// and (D, B, H). Returns cudaGetLastError() after the launches.
-int tpuasr_bigru_bwd(const void* xg, const void* w_h, const float* b_h,
-                     const float* mask, const void* h_prev, const void* dy,
-                     void* packed, float* carry, float* dhg, float* direct,
-                     int T_len, int D, int B, int H, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (h_prev, w_h). hg: (T, D, B, 3, HP)
+// f32. Returns cudaGetLastError() after the launch.
+int tpuasr_bigru_bwd_hg(const void* h_prev, const void* w_h, const float* b_h, float* hg,
+                        int T_len, int D, int B, int H, int HP, int dtype, void* stream) {
   using namespace tpuasr_rnn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bwd_hg(h_prev, w_h, WLayout{3 * H, H}, b_h, hg, T_len, D, B, H, 3, HP, dtype,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The reverse loop; layout is rnn_plan.BwdPlan.as_ints(). c_prev and cs
+// are unused (the LSTM's). Returns the launch's error code, or
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident.
+int tpuasr_bigru_bwd_loop(const void* xg, const void* w_h, const float* mask,
+                          const void* h_prev, const void* c_prev, const void* cs,
+                          const void* dy, const float* hg, void* packed, float* dhg,
+                          unsigned int* bar, const int* layout, int T_len, int D, int B,
+                          int H, int dtype, void* stream) {
+  using namespace tpuasr_rnn;
   const size_t h = H;
-  const GateStrides xs{B * 3 * h, 3 * h, h};  // (D, B, 3H)
-  const WLayout wl{3 * H, H};                 // (H, 3H)
-  const GateStrides ps{B * 4 * h, 4 * h, h};  // (D, B, 4H)
-  if (dtype == 0)
-    return gru_bwd_all<float>(xg, xs, w_h, wl, b_h, mask, h_prev, dy, packed,
-                              ps, carry, dhg, direct, T_len, D, B, H, s);
-  if (dtype == 1)
-    return gru_bwd_all<__nv_bfloat16>(xg, xs, w_h, wl, b_h, mask, h_prev, dy,
-                                      packed, ps, carry, dhg, direct, T_len, D,
-                                      B, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_loop<3>(xg, GateStrides{B * 3 * h, 3 * h, h}, w_h, WLayout{3 * H, H}, mask,
+                     h_prev, c_prev, cs, dy, hg, packed, GateStrides{B * 4 * h, 4 * h, h},
+                     dhg, bar, layout, T_len, D, B, H, dtype,
+                     static_cast<cudaStream_t>(stream));
+}
+
+int tpuasr_rnn_device_limits(int* n_sms, int* smem_optin) {
+  return tpuasr_rnn::device_limits(n_sms, smem_optin);
 }
 
 const char* tpuasr_cuda_error_string(int err) {

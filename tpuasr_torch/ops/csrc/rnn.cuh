@@ -14,17 +14,13 @@
 // straight from L2 (the weights of a layer fit the 50 MB L2), one group of
 // KG columns ahead, and h as float4 along k. The warps' partial sums meet
 // in shared memory, and a thread per (row, unit) then does the gate math
-// with no further exchange. The backward's carry product (the gate
-// gradients times w_h^T, mixing all NG*H columns) is a second launch,
-// rnn_bwd_carry, of the same shape.
+// with no further exchange. The backward (K1b, K4b, K5b) is in
+// rnn_bwd.cuh.
 //
 // The weight layout is a pair of strides (WLayout): element (k, g, j) of
 // w_h[d] lies at k * wk + g * wg + j. The input projections and the packed
 // gradients of the GRU are addressed the same way (GateStrides), so K1 and
-// K5 run one compiled body and agree bit for bit on the same weights. The
-// carry product reads rows of w_h along the flat gate axis; where a row is
-// contiguous (K1, K4) it is read as one, which the gate-major layout (K5)
-// can only do a gate at a time (rnn_bwd_carry's ROWS).
+// K5 run one compiled body and agree bit for bit on the same weights.
 
 #pragma once
 
@@ -205,114 +201,6 @@ __device__ __forceinline__ void add_partials(float (&s)[NG], const float* red,
   }
 }
 
-// w_h[d] at row k, flat gate columns c .. c + KG - 1; zero past H and
-// G = NG * H. ROWS: the row is contiguous along the flat columns
-// (wg == H); else column c is gate g = c / H, unit j = c % H, which the
-// caller keeps.
-template <typename T, bool ROWS>
-__device__ __forceinline__ void load_wrow(float (&w)[KG], const T* w_d,
-                                          WLayout wl, int c, int g, int j,
-                                          int k, int H, int G) {
-  const T* p = w_d + static_cast<size_t>(k < H ? k : 0) * wl.wk;
-  if (!ROWS) {  // gate-major: the columns of one gate are contiguous
-    if (j + KG > H) {  // the group straddles two gates
-#pragma unroll
-      for (int q = 0; q < KG; ++q) {
-        w[q] = (k < H && c + q < G) ? to_f32(p[g * wl.wg + j]) : 0.0f;
-        if (++j == H) j = 0, ++g;
-      }
-      return;
-    }
-    p += g * wl.wg + j - c;  // then p[c + q] is (g, j + q)
-  }
-#pragma unroll
-  for (int q = 0; q < KG; ++q) w[q] = (k < H && c + q < G) ? to_f32(p[c + q]) : 0.0f;
-}
-
-// The backward's carry product of one reverse step:
-//   carry[d, b, k] = sum_c dhg[d, b, c] * w_h[d, k, c / H, c % H]
-//                    + direct[d, b, k],   c over the G = NG * H columns.
-// A block owns JB units k for BB rows, stages dhg (f32, in passes of at
-// most KC_MAX columns) and reduces over the gate axis, reading row k of
-// w_h[d] from L2 (ROWS as in load_wrow). grid = (ceil(H/JB), ceil(B/BB),
-// D), block = NTHREADS, dynamic shared memory smem_bytes(kc, 1),
-// kc = staged_columns(G).
-template <typename T, int NG, bool ROWS>
-__global__ void __launch_bounds__(NTHREADS)
-rnn_bwd_carry(const float* __restrict__ dhg,     // (D, B, NG*H)
-              const T* __restrict__ w_h,         // (D, ...) in layout wl
-              WLayout wl,
-              const float* __restrict__ direct,  // (D, B, H)
-              float* __restrict__ carry,         // (D, B, H)
-              int B, int H, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  float* hs = smem;   // staged dhg
-  float* red = smem;  // red[(warp * BB + row) * JB + u], after
-
-  const int d = blockIdx.z;
-  const int k0u = blockIdx.x * JB;
-  const int b0 = blockIdx.y * BB;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int u = lane % JB, par = lane / JB;
-  const int G = NG * H;
-  const int stride = kc + PAD;
-  const T* w_d = w_h + static_cast<size_t>(d) * H * G;
-  const float* dg_d = dhg + static_cast<size_t>(d) * B * G;
-  const int k = k0u + u;  // this lane's unit
-
-  float acc[RB];
-#pragma unroll
-  for (int i = 0; i < RB; ++i) acc[i] = 0.0f;
-  const int kw = kc / NWARPS;
-  for (int g0 = 0; g0 < G; g0 += kc) {
-    stage_rows(hs, dg_d, G, b0, B, g0, G, kc, warp, lane);
-    __syncthreads();
-    const int gb = warp * kw, ge = gb + kw;
-    int cg = 0, cj = 0;  // gate-major: the gate and unit of the next group
-    if (!ROWS) cg = (g0 + gb) / H, cj = g0 + gb - cg * H;
-    float wn[KG];
-    load_wrow<T, ROWS>(wn, w_d, wl, g0 + gb, cg, cj, k, H, G);
-    for (int gg = gb; gg < ge; gg += KG) {
-      float w[KG];
-#pragma unroll
-      for (int q = 0; q < KG; ++q) w[q] = wn[q];
-      if (gg + KG < ge) {
-        if (!ROWS)
-          for (cj += KG; cj >= H; cj -= H) ++cg;
-        load_wrow<T, ROWS>(wn, w_d, wl, g0 + gg + KG, cg, cj, k, H, G);
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        float hv[KG];
-#pragma unroll
-        for (int q = 0; q < KG; q += 4) {
-          const float4 h4 = *reinterpret_cast<const float4*>(
-              &hs[(par + 2 * i) * stride + gg + q]);
-          hv[q] = h4.x, hv[q + 1] = h4.y, hv[q + 2] = h4.z, hv[q + 3] = h4.w;
-        }
-#pragma unroll
-        for (int q = 0; q < KG; ++q) acc[i] = fmaf(hv[q], w[q], acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < RB; ++i) red[(warp * BB + par + 2 * i) * JB + u] = acc[i];
-  __syncthreads();
-
-  for (int p = tid; p < BB * JB; p += NTHREADS) {
-    const int row = p / JB, uu = p % JB;
-    const int b = b0 + row, kk = k0u + uu;
-    if (b >= B || kk >= H) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) s += red[(w * BB + row) * JB + uu];
-    const size_t idx = (static_cast<size_t>(d) * B + b) * H + kk;
-    carry[idx] = s + direct[idx];
-  }
-}
-
 // Sets a kernel's dynamic shared memory limit; cudaSuccess or the error.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -322,14 +210,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 inline dim3 step_grid(int D, int B, int H) {
   return dim3((H + JB - 1) / JB, (B + BB - 1) / BB, D);
-}
-
-// rnn_bwd_carry for a layout: the contiguous-row body where rows are.
-template <typename T, int NG>
-auto carry_kernel(WLayout wl, int H) {
-  auto rows = &rnn_bwd_carry<T, NG, true>;
-  auto gate_major = &rnn_bwd_carry<T, NG, false>;
-  return wl.wg == H ? rows : gate_major;
 }
 
 // ------------------------------------------------------------------ GRU
@@ -382,76 +262,6 @@ gru_fwd_step(const T* __restrict__ xg,       // step t, strides xs
   }
 }
 
-// Launch A of one reverse GRU step (K1b, K5b): hg recomputed from
-// h_{t-1}, then for every (d, b, j)
-//   dh   = carry + dy_t                   (carry: dL/dh_t, f32)
-//   dn = dh (1 - z), dz = dh (h_{t-1} - n), dn_pre = dn (1 - n^2)
-//   dr_pre = dn_pre hn r (1 - r), dz_pre = dz z (1 - z), dhn = dn_pre r
-//   dhg  = [dr_pre, dz_pre, dhn] * m      (f32, (D, B, 3H))
-//   packed_t = round([dr_pre, dz_pre, dn_pre, dhn] * m)   (strides ps)
-//   direct = m (dh z m) + (1 - m) dh
-// grid = step_grid, block = NTHREADS, dynamic smem smem_bytes(kc, 3).
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-gru_bwd_gates(const T* __restrict__ xg,          // step t, strides xs
-              GateStrides xs,
-              const T* __restrict__ w_h,         // (D, ...) in layout wl
-              WLayout wl,
-              const float* __restrict__ b_h,     // (D, 3H)
-              const float* __restrict__ m_t,     // (D, B) of step t
-              const T* __restrict__ hp,          // (D, B, H): h_{t-1}
-              const T* __restrict__ dy,          // (D, B, H) of step t
-              const float* __restrict__ carry,   // (D, B, H): dL/dh_t
-              T* __restrict__ packed,            // step t, strides ps
-              GateStrides ps,
-              float* __restrict__ dhg,           // (D, B, 3H)
-              float* __restrict__ direct,        // (D, B, H)
-              int B, int H, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  const int d = blockIdx.z;
-  const int j0 = blockIdx.x * JB;
-  const int b0 = blockIdx.y * BB;
-  const int G = 3 * H;
-  const T* w_d = w_h + static_cast<size_t>(d) * H * G;
-  const T* hp_d = hp + static_cast<size_t>(d) * B * H;
-  gate_products<T, 3>(smem, hp_d, w_d, wl, B, H, b0, j0, kc);
-
-  const float* bh = b_h + static_cast<size_t>(d) * G;
-  for (int p = threadIdx.x; p < BB * JB; p += NTHREADS) {
-    const int row = p / JB, uu = p % JB;
-    const int b = b0 + row, j = j0 + uu;
-    if (b >= B || j >= H) continue;
-    float s[3] = {bh[j], bh[H + j], bh[2 * H + j]};
-    add_partials<3>(s, smem, row, uu);
-    const size_t r = static_cast<size_t>(d) * B + b;
-    const T* x = xg + d * xs.sd + b * xs.sb + j;
-    const float h = to_f32(hp_d[static_cast<size_t>(b) * H + j]);
-    const float rg = sigmoid_f32(to_f32(x[0]) + s[0]);
-    const float zg = sigmoid_f32(to_f32(x[xs.sg]) + s[1]);
-    const float ng = tanhf(to_f32(x[2 * xs.sg]) + rg * s[2]);
-    const float dh = carry[r * H + j] + to_f32(dy[r * H + j]);
-    const float m = m_t[r];
-    const float dn = dh * (1.0f - zg);
-    const float dz = dh * (h - ng);
-    const float dh_direct = dh * zg;
-    const float dn_pre = dn * (1.0f - ng * ng);
-    const float dr = dn_pre * s[2];
-    const float dhn = dn_pre * rg;
-    const float dz_pre = dz * zg * (1.0f - zg);
-    const float dr_pre = dr * rg * (1.0f - rg);
-    float* dg = dhg + r * G;
-    dg[j] = dr_pre * m;
-    dg[H + j] = dz_pre * m;
-    dg[2 * H + j] = dhn * m;
-    T* pk = packed + d * ps.sd + b * ps.sb + j;
-    pk[0] = from_f32<T>(dr_pre * m);
-    pk[ps.sg] = from_f32<T>(dz_pre * m);
-    pk[2 * ps.sg] = from_f32<T>(dn_pre * m);
-    pk[3 * ps.sg] = from_f32<T>(dhn * m);
-    direct[r * H + j] = m * (dh_direct * m) + (1.0f - m) * dh;
-  }
-}
-
 // The whole forward time loop: one gru_fwd_step launch per step, both
 // directions in each; the stream orders the steps. Returns
 // cudaGetLastError() after the launches.
@@ -473,50 +283,6 @@ int gru_fwd_all(const void* xg, GateStrides xs, const void* w_h, WLayout wl,
         x + t * x_step, xs, static_cast<const T*>(w_h), wl, b_h,
         mask + static_cast<size_t>(t) * D * B,
         t == 0 ? nullptr : y + (t - 1) * y_step, y + t * y_step, B, H, kc);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The whole backward time loop: per reverse step, gru_bwd_gates then
-// rnn_bwd_carry (the carry is updated in place: the carry launch reads
-// nothing the gates launch reads from it). Scratch carry (D, B, H), dhg
-// (D, B, 3H) and direct (D, B, H), all f32; the carry is zeroed here.
-template <typename T>
-int gru_bwd_all(const void* xg, GateStrides xs, const void* w_h, WLayout wl,
-                const float* b_h, const float* mask, const void* h_prev,
-                const void* dy, void* packed, GateStrides ps, float* carry,
-                float* dhg, float* direct, int T_len, int D, int B, int H,
-                cudaStream_t stream) {
-  const int kc_a = staged_columns(H), kc_b = staged_columns(3 * H);
-  const size_t smem_a = smem_bytes(kc_a, 3), smem_b = smem_bytes(kc_b, 1);
-  const auto carry_step = carry_kernel<T, 3>(wl, H);
-  cudaError_t err = allow_smem(gru_bwd_gates<T>, smem_a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(carry_step, smem_b);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(carry, 0, sizeof(float) * D * B * H, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 grid = step_grid(D, B, H);
-  const size_t x_step = static_cast<size_t>(D) * B * 3 * H;
-  const size_t h_step = static_cast<size_t>(D) * B * H;
-  const size_t p_step = static_cast<size_t>(D) * B * 4 * H;
-  const T* x = static_cast<const T*>(xg);
-  const T* hp = static_cast<const T*>(h_prev);
-  const T* g = static_cast<const T*>(dy);
-  T* pk = static_cast<T*>(packed);
-  const T* w = static_cast<const T*>(w_h);
-  for (int t = T_len - 1; t >= 0; --t) {
-    gru_bwd_gates<T><<<grid, NTHREADS, smem_a, stream>>>(
-        x + t * x_step, xs, w, wl, b_h, mask + static_cast<size_t>(t) * D * B,
-        hp + t * h_step, g + t * h_step, carry, pk + t * p_step, ps, dhg,
-        direct, B, H, kc_a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    carry_step<<<grid, NTHREADS, smem_b, stream>>>(dhg, w, wl, direct, carry, B,
-                                                   H, kc_b);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -30,6 +30,7 @@ import functools
 import torch
 
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops.rnn_plan import rnn_bwd_plan
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -179,13 +180,21 @@ def check_states(xg: torch.Tensor, shape: tuple, **states: torch.Tensor) -> None
 
 @functools.cache
 def kernel_library(name: str) -> ctypes.CDLL:
-    """The library of a GRU kernel, ``bigru[2]_fwd`` or ``bigru[2]_bwd``
-    (built on first use), with its C signature; K1 and K5 share theirs."""
+    """The library of a GRU kernel, ``bigru[2]_fwd``, or of a backward
+    kernel, ``bigru[2]_bwd`` or ``bilstm_bwd`` (built on first use), with
+    its C signatures; the three backward libraries share theirs."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, f"tpuasr_{name}")
-    fn.argtypes = [p] * 5 + [i] * 5 + [p] if name.endswith("fwd") else [p] * 10 + [i] * 5 + [p]
-    fn.restype = ctypes.c_int
+    if name.endswith("fwd"):
+        fns = {f"tpuasr_{name}": [p] * 5 + [i] * 5 + [p]}
+    else:
+        fns = {f"tpuasr_{name}_hg": [p] * 4 + [i] * 6 + [p],
+               f"tpuasr_{name}_loop": [p] * 12 + [i] * 5 + [p],
+               "tpuasr_rnn_device_limits": [ctypes.POINTER(i)] * 2}
+    for fn_name, argtypes in fns.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -195,6 +204,71 @@ def raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.tpuasr_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+@functools.cache
+def _device_limits(name: str, index: int) -> tuple[int, int]:
+    """(SMs, opt-in shared memory bytes a block) of CUDA device ``index``:
+    the SM count from torch, the shared memory from the C side."""
+    lib = kernel_library(name)
+    n_sms, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        raise_on(lib, lib.tpuasr_rnn_device_limits(ctypes.byref(n_sms), ctypes.byref(smem)),
+                 f"{name} device query")
+    return torch.cuda.get_device_properties(index).multi_processor_count, smem.value
+
+
+BWD_LAUNCHES = 2  # per backward call: the hg GEMM and the persistent loop
+# A list to time the backward's two launches: each call appends CUDA
+# events {"hg": (start, end), "loop": (start, end)}; None: no events.
+bwd_events: list | None = None
+
+
+def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
+                 b_h: torch.Tensor, mask: torch.Tensor, h_prev: torch.Tensor,
+                 dy: torch.Tensor, out: torch.Tensor, c_prev: torch.Tensor | None = None,
+                 cs: torch.Tensor | None = None) -> None:
+    """Launch a fused RNN backward (``csrc/rnn_bwd.cuh``) into ``out``:
+    the hg GEMM over every step, then the persistent reverse loop, tiled
+    by ``rnn_bwd_plan`` for this card. ``name`` is the library
+    (``bigru_bwd``, ``bigru2_bwd``, ``bilstm_bwd``); inputs are checked by
+    the caller. Appends the launches' CUDA events to ``bwd_events`` when
+    that is a list."""
+    t_len, nd = xg.shape[:2]
+    b, h = h_prev.shape[2], h_prev.shape[3]
+    dev = xg.device
+    lib = kernel_library(name)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_sms, smem = _device_limits(name, index)
+    plan = rnn_bwd_plan(nd, b, h, n_gates, xg.element_size(), n_sms, smem)
+    f32 = dict(dtype=torch.float32, device=dev)
+    hg = torch.empty((t_len, nd, b, n_gates, plan.HP), **f32)  # hg of every step
+    dhg = torch.zeros((2, nd, b, plan.GP), **f32)  # dhg of steps t % 2 (put_dhg); pad stays 0
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
+    ints = plan.as_ints()
+    layout = (ctypes.c_int * len(ints))(*ints)
+    code = DTYPE_CODE[xg.dtype]
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ev = None if bwd_events is None else [
+            torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        if ev:
+            ev[0].record()
+        err = getattr(lib, f"tpuasr_{name}_hg")(
+            h_prev.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), hg.data_ptr(),
+            t_len, nd, b, h, plan.HP, code, stream)
+        raise_on(lib, err, f"{name} hg")
+        if ev:
+            ev[1].record()
+        err = getattr(lib, f"tpuasr_{name}_loop")(
+            xg.data_ptr(), w_h.data_ptr(), mask.data_ptr(), h_prev.data_ptr(), ptr(c_prev),
+            ptr(cs), dy.data_ptr(), hg.data_ptr(), out.data_ptr(), dhg.data_ptr(),
+            bar.data_ptr(), layout, t_len, nd, b, h, code, stream)
+        raise_on(lib, err, f"{name} loop")
+        if ev:
+            ev[2].record()
+            bwd_events.append({"hg": (ev[0], ev[1]), "loop": (ev[1], ev[2])})
 
 
 def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
@@ -234,8 +308,9 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                    dy: torch.Tensor) -> torch.Tensor:
     """Reverse-time GRU gate gradients: -> packed (T, D, B, 4H).
 
-    CUDA tensors run the Hopper kernel (two launches per time step, each
-    counted in ``bigru_backward.launches``); CPU tensors run
+    CUDA tensors run the Hopper kernel (two launches a call whatever T,
+    the hg GEMM and the persistent loop, each counted in
+    ``bigru_backward.launches``); CPU tensors run
     ``bigru_backward_reference``. On CUDA, h_prev and dy must be
     contiguous and in xg's dtype, with the shape of ys.
     """
@@ -244,25 +319,13 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     if xg.device.type != "cuda":
         raise ValueError(f"bigru_backward runs on cuda or cpu, not {xg.device}")
     h = check_inputs(xg, w_h, b_h, mask)
-    t_len, nd, b, g3 = xg.shape
+    t_len, nd, b, _ = xg.shape
     check_states(xg, (t_len, nd, b, h), h_prev=h_prev, dy=dy)
     packed = torch.empty((t_len, nd, b, 4 * h), dtype=xg.dtype, device=xg.device)
     if packed.numel() == 0:
         return packed
-    f32 = dict(dtype=torch.float32, device=xg.device)
-    carry = torch.empty((nd, b, h), **f32)  # dL/dh_t, zeroed by the kernel
-    dhg = torch.empty((nd, b, g3), **f32)  # one step's [dr_pre, dz_pre, dhn] * m
-    direct = torch.empty((nd, b, h), **f32)  # one step's dh * z * m or dh
-    lib = kernel_library("bigru_bwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bigru_bwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            h_prev.data_ptr(), dy.data_ptr(), packed.data_ptr(),
-            carry.data_ptr(), dhg.data_ptr(), direct.data_ptr(),
-            t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bigru_bwd")
-    bigru_backward.launches += 2 * t_len
+    run_backward("bigru_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, packed)
+    bigru_backward.launches += BWD_LAUNCHES
     return packed
 
 

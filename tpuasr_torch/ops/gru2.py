@@ -25,11 +25,13 @@ from __future__ import annotations
 import torch
 
 from tpuasr_torch.ops.gru import (
+    BWD_LAUNCHES,
     DTYPE_CODE,
     check_inputs,
     check_states,
     kernel_library,
     raise_on,
+    run_backward,
     shift_time,
 )
 
@@ -157,8 +159,8 @@ def bigru2_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                     dy: torch.Tensor) -> torch.Tensor:
     """Reverse-time gate-major GRU gradients: -> dg (T, D, 4, B, H).
 
-    CUDA tensors run the Hopper kernel (two launches per time step, each
-    counted in ``bigru2_backward.launches``); CPU tensors run
+    CUDA tensors run the Hopper kernel (two launches a call whatever T,
+    each counted in ``bigru2_backward.launches``); CPU tensors run
     ``bigru2_backward_reference``. On CUDA, h_prev and dy must be
     contiguous and in xg's dtype, with the shape of ys.
     """
@@ -172,20 +174,8 @@ def bigru2_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     dg = torch.empty((t_len, nd, 4, b, h), dtype=xg.dtype, device=xg.device)
     if dg.numel() == 0:
         return dg
-    f32 = dict(dtype=torch.float32, device=xg.device)
-    carry = torch.empty((nd, b, h), **f32)  # dL/dh_t, zeroed by the kernel
-    dhg = torch.empty((nd, b, 3 * h), **f32)  # one step's [dr_pre, dz_pre, dhn] * m
-    direct = torch.empty((nd, b, h), **f32)  # one step's dh * z * m or dh
-    lib = kernel_library("bigru2_bwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bigru2_bwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            h_prev.data_ptr(), dy.data_ptr(), dg.data_ptr(),
-            carry.data_ptr(), dhg.data_ptr(), direct.data_ptr(),
-            t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bigru2_bwd")
-    bigru2_backward.launches += 2 * t_len
+    run_backward("bigru2_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, dg)
+    bigru2_backward.launches += BWD_LAUNCHES
     return dg
 
 

@@ -30,10 +30,12 @@ import torch
 
 from tpuasr_torch.ops import _build
 from tpuasr_torch.ops.gru import (
+    BWD_LAUNCHES,
     DTYPE_CODE,
     check_inputs,
     check_states,
     raise_on,
+    run_backward,
     shift_time,
 )
 
@@ -129,12 +131,12 @@ def bilstm_backward_reference(xg: torch.Tensor, w_h: torch.Tensor,
 
 @functools.cache
 def _lib(name: str) -> ctypes.CDLL:
-    """``bilstm_fwd`` or ``bilstm_bwd``'s library (built on first use)
-    with its C signature."""
+    """``bilstm_fwd``'s library (built on first use) with its C
+    signature; ``bilstm_bwd``'s is ``gru.kernel_library``'s."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, f"tpuasr_{name}")
-    fn.argtypes = [p] * 7 + [i] * 5 + [p] if name == "bilstm_fwd" else [p] * 13 + [i] * 5 + [p]
+    fn.argtypes = [p] * 7 + [i] * 5 + [p]
     fn.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
@@ -183,8 +185,9 @@ def bilstm_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                     dy: torch.Tensor) -> torch.Tensor:
     """Reverse-time LSTM gate gradients: -> dhg (T, D, B, 4H).
 
-    CUDA tensors run the Hopper kernel (two launches per time step, each
-    counted in ``bilstm_backward.launches``); CPU tensors run
+    CUDA tensors run the Hopper kernel (two launches a call whatever T,
+    the hg GEMM and the persistent loop, each counted in
+    ``bilstm_backward.launches``); CPU tensors run
     ``bilstm_backward_reference``. On CUDA, h_prev, c_prev, cs and dy
     must be contiguous and in xg's dtype, with the shape of ys.
     """
@@ -193,27 +196,14 @@ def bilstm_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     if xg.device.type != "cuda":
         raise ValueError(f"bilstm_backward runs on cuda or cpu, not {xg.device}")
     h = check_inputs(xg, w_h, b_h, mask, n_gates=4)
-    t_len, nd, b, g4 = xg.shape
+    t_len, nd, b, _ = xg.shape
     check_states(xg, (t_len, nd, b, h), h_prev=h_prev, c_prev=c_prev, cs=cs, dy=dy)
     dhg = torch.empty_like(xg)
     if dhg.numel() == 0:
         return dhg
-    f32 = dict(dtype=torch.float32, device=xg.device)
-    carry_h = torch.empty((nd, b, h), **f32)  # dL/dh_t, zeroed by the kernel
-    carry_c = torch.empty((nd, b, h), **f32)  # dL/dc_t, zeroed by the kernel
-    dhg_f32 = torch.empty((nd, b, g4), **f32)  # one step's unrounded dhg
-    direct = torch.empty((nd, b, h), **f32)  # one step's (1 - m) dh
-    lib = _lib("bilstm_bwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bilstm_bwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            h_prev.data_ptr(), c_prev.data_ptr(), cs.data_ptr(), dy.data_ptr(),
-            dhg.data_ptr(), carry_h.data_ptr(), carry_c.data_ptr(),
-            dhg_f32.data_ptr(), direct.data_ptr(),
-            t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bilstm_bwd")
-    bilstm_backward.launches += 2 * t_len
+    run_backward("bilstm_bwd", 4, xg, w_h, b_h, mask, h_prev, dy, dhg, c_prev=c_prev,
+                 cs=cs)
+    bilstm_backward.launches += BWD_LAUNCHES
     return dhg
 
 
