@@ -29,14 +29,21 @@ non-zero without printing a result:
                and ragged tiles (the flagship cases hold a length-0
                row), each also through its whole autograd function; K5
                must equal K1 bit for bit on the relaid-out inputs; the
-               yardsticks are cuDNN nn.LSTM and nn.GRU. The backward
-               kernels (K1b, K4b, K5b: an hg GEMM and one persistent
-               cooperative loop, two launches a call) also run the edges
-               of their launch plan (H=1760 with w_h partly in L2, B=96,
-               B=1, every row of length 0), must give bit-identical
-               results on two calls, and are timed whole and split into
-               the GEMM and the loop; cuDNN's backward is the median
-               and range of 5 timings of 10 calls.
+               yardsticks are cuDNN nn.LSTM and nn.GRU, each the median
+               and range of 5 timings of 10 calls. The forward kernels
+               (K1f, K4f, K5f: one persistent cooperative launch a call)
+               and the backward kernels (K1b, K4b, K5b: an hg GEMM and one
+               persistent cooperative loop, two launches a call) also run
+               the edges of their launch plans (H=1760 with w_h partly in
+               L2, B=96, B=1, every row of length 0, B=448 for the GRU and
+               B=320 for the LSTM, where the backward runs in two row
+               groups), in f32 and bf16, must give bit-identical results
+               on two calls, and are timed whole and split: the forward's
+               step into its barrier wait, h load, product and gate math
+               (clock64 spans), the backward into the GEMM and the loop.
+               With the forward plan's row limit set to 7, B=20 runs in 3
+               row groups, one launch each, equal bit for bit to one
+               launch.
   4. train   — the training main path: a synthetic 5 s corpus (64
                training and 32 validation utterances) and
                tpuasr_torch.cli.train.main on the full-width flagship
@@ -53,8 +60,9 @@ non-zero without printing a result:
                the corpus; a word trigram of a 50k synthetic vocabulary,
                158,337 entries, whose packing is timed) at B=32, W=10,
                C=44, T'=251 and 826, on peaked logits of the corpus
-               sentences and on the trained checkpoint's logits; 4
-               chunked stateful calls against one call; then its times
+               sentences and on the trained checkpoint's logits, and at
+               T'=251 with W=100 (no LM, char, word) and a char 7-gram;
+               4 chunked stateful calls against one call; then its times
                and the plain version's beside the bound.
   6. decode  — the evaluation main path: tpuasr_torch.cli.train_lm builds
                a word and a char trigram ARPA from the training
@@ -80,8 +88,8 @@ non-zero without printing a result:
                grown, and one batch's logits must match the model run
                with the plain GRU on the card.
                Then one lone request's latency and a time split of one
-               service batch (frontend, convs, RNN layers, GRU kernel,
-               head, decode).
+               service batch (frontend, convs, RNN layers, GRU kernel and
+               its step split, head, decode).
   8. lstm, gru2 — the BiLSTM (``--rnn-type lstm``) and the gate-major
                BiGRU (``--rnn-impl pallas2``) at the flagship's width
                (5 layers of 800, bf16, batch 32) through
@@ -326,6 +334,69 @@ def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def fwd_split(run, reps: int = 1):
+    """The forward kernels' step split: ``run()`` (``reps`` times) with
+    their per-part step timer on (``tpuasr_torch.ops.gru.fwd_parts``),
+    reduced over every block and call: each part's share of the loop's
+    clock64 cycles (barrier wait, the first window of h landing, the rest
+    of the product with its exchange, the gate math), cycles a step, and
+    the steps a run takes. While the timer is on the first window of h
+    is waited for before the product starts, so the shares describe a
+    step with that wait made visible. None when nothing launched (a CPU
+    rehearsal)."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+
+    gru_mod.fwd_parts = []
+    try:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        parts = gru_mod.fwd_parts
+    finally:
+        gru_mod.fwd_parts = None
+    if not parts:
+        return None
+    names = gru_mod.FWD_PARTS
+    cycles = dict.fromkeys(names, 0.0)
+    steps = 0
+    for call in parts:
+        per_block = call["timer"].double().mean(0).tolist()
+        for k, v in zip(names, per_block):
+            cycles[k] += v
+        steps += call["T"]
+    return {"share": {k: cycles[k] / cycles["loop"] for k in names[:-1]},
+            "cycles_per_step": {k: v / steps for k, v in cycles.items()},
+            "steps_per_run": steps / reps}
+
+
+def split_us(split, kernel_ms: float):
+    """``fwd_split``'s shares as microseconds a step of a kernel whose
+    (untimed) calls of one run took ``kernel_ms`` in all."""
+    if split is None:
+        return None
+    step_us = kernel_ms * 1e3 / split["steps_per_run"]
+    return {**split, "step_us": step_us,
+            "us_per_step": {k: v * step_us for k, v in split["share"].items()}}
+
+
+def fwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
+    """A forward kernel's time at (T, B, H, D) bf16: the whole call (one
+    persistent launch; mean of 10 calls), its step split into parts
+    (``fwd_split`` over 3 calls, scaled to the untimed step), the plain
+    loop, cuDNN's forward (median and range over 5 separate timings of 10
+    calls: it swings between calls) and the bound."""
+    ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
+    lib = sorted(cudnn_rnn_ms(*lib_args, iters=10, n_gates=n_gates) for _ in range(5))
+    bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=n_gates)
+    return {"shape": [t, nd, b, h], "dtype": "bfloat16", "ms": ms,
+            "split": split_us(fwd_split(lambda: fn(*args), reps=3), ms),
+            "plain_ms": time_ms(lambda: plain(*args), iters=2),
+            "library_ms": lib[len(lib) // 2], "library_ms_range": [lib[0], lib[-1]],
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def check_fwd(name, got, want, dtype) -> dict:
     """The BiGRU forward tolerances (module docstring), for K1f, K4f and
     K5f; ``dtype`` by name."""
@@ -368,38 +439,38 @@ def function_vs_plain(fn, xg, w_h, b_h, mask, dy, dtype) -> dict:
 
 
 def phase_kernel():
+    """K1f against its plain loop at the serving shapes and at the edges of
+    its launch plan (one launch a call, two calls bit-identical), then its
+    times and step split beside cuDNN's nn.GRU and the bound."""
     import torch
 
     from tpuasr_torch.ops.gru import bigru_forward, bigru_reference
 
     cuda = torch.device("cuda")
     results = []
-    cases = [  # (name, T, B, H, D, dtype)
-        ("serving-5s-bf16", 251, 32, 800, 2, torch.bfloat16),
-        ("serving-5s-f32", 251, 32, 800, 2, torch.float32),
-        ("T7-D1-bf16", 7, 5, 800, 1, torch.bfloat16),
-        ("ragged-tiles-f32", 9, 33, 100, 2, torch.float32),
+    cases = [  # (name, T, B, H, D, dtype, lengths)
+        ("serving-5s-bf16", 251, 32, 800, 2, "bfloat16", None),
+        ("serving-5s-f32", 251, 32, 800, 2, "float32", None),
+        ("T7-D1-bf16", 7, 5, 800, 1, "bfloat16", None),
+        ("ragged-tiles-f32", 9, 33, 100, 2, "float32", None),
+        *BWD_EDGE_CASES, *FWD_EDGE_CASES,
     ]
-    for i, (name, t, b, h, nd, dtype) in enumerate(cases):
-        args = gru_case(t, b, h, nd, dtype, seed=i, device=cuda)
+    for i, (name, t, b, h, nd, dt, lengths) in enumerate(cases):
+        args = gru_case(t, b, h, nd, getattr(torch, dt), seed=i, device=cuda, lengths=lengths)
+        before = bigru_forward.launches
         ys = bigru_forward(*args)
         torch.cuda.synchronize()
-        dt = str(dtype).split(".")[1]
-        results.append({"case": name, "shape": [t, nd, b, h], "dtype": dt,
+        check(bigru_forward.launches == before + 1, f"bigru_fwd {name}: one launch a call")
+        check(torch.equal(ys, bigru_forward(*args)), f"bigru_fwd {name}: two calls differ")
+        results.append({"case": name, "shape": [t, nd, b, h], "dtype": dt, "deterministic": True,
                         **check_fwd(f"bigru {name}", ys, bigru_reference(*args), dt)})
         emit("kernel", kernel="bigru_fwd", **results[-1])
 
     timings = []
-    for t in (251, 826):  # the 5 s and 16.5 s serving buckets
-        b, h, nd = 32, 800, 2
+    for t, b, h in TIMING_SHAPES:  # the 5 s and 16.5 s serving buckets
+        nd = 2
         args = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda)
-        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2)
-        timings.append({
-            "shape": [t, nd, b, h], "dtype": "bfloat16",
-            "ms": time_ms(lambda: bigru_forward(*args), iters=10, warmup=2),
-            "plain_ms": time_ms(lambda: bigru_reference(*args), iters=2),
-            "library_ms": cudnn_rnn_ms(args[0], args[1], args[2], iters=10),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        timings.append(fwd_timing(bigru_forward, bigru_reference, args, args[:3], t, b, h, nd))
         emit("kernel_time", kernel="bigru_fwd", **timings[-1])
     return results[0], timings
 
@@ -497,9 +568,9 @@ NEW_RNN_CASES = [
     ("T7-D1-f32", 7, 5, 800, 1, "float32", None),
     ("ragged-tiles-f32", 33, 9, 100, 2, "float32", None),
 ]
-# the backward's launch plan at its edges (tpuasr_torch/ops/rnn_plan.py):
-# w_h rows partly read from L2 (H=1760), three row tiles (B=96), one row,
-# every frame masked; K1b, K4b and K5b run them too
+# the launch plans at their edges (tpuasr_torch/ops/rnn_plan.py): w_h
+# rows partly read from L2 (H=1760), three row tiles (B=96), one row,
+# every frame masked; the forward and backward kernels run them all
 BWD_EDGE_CASES = [
     ("H1760-T3-bf16", 3, 32, 1760, 2, "bfloat16", None),
     ("B96-f32", 5, 96, 100, 2, "float32", None),
@@ -507,13 +578,78 @@ BWD_EDGE_CASES = [
     ("B1-bf16", 6, 1, 100, 2, "bfloat16", [6]),
     ("len0-bf16", 6, 9, 100, 2, "bfloat16", [0] * 9),
 ]
+# and the forward's other edges: 14 row tiles a step (B=448; the LSTM
+# phase runs B=320 there, past what one backward plan holds, so its
+# backward runs in row groups, as the GRU's does at 448), the f32 cases
+# of the edges above, and D=1 in bf16
+FWD_EDGE_CASES = [
+    ("B448-bf16", 3, 448, 800, 2, "bfloat16", None),
+    ("B448-f32", 3, 448, 800, 2, "float32", None),
+    ("H1760-T3-f32", 3, 32, 1760, 2, "float32", None),
+    ("B1-f32", 6, 1, 100, 2, "float32", [6]),
+    ("len0-f32", 6, 9, 100, 2, "float32", [0] * 9),
+    ("D1-bf16", 7, 5, 800, 1, "bfloat16", None),
+]
+
+
+def phase_fwd_row_groups(device="cuda", t=6, b=20, h=100):
+    """K1f, K5f and K4f past the rows one forward plan holds: with the
+    limit set to 7 rows, B=20 runs in 3 row groups, one launch each, and
+    must equal the single launch bit for bit and the plain loops within
+    ``check_fwd``'s tolerances. (At H=800 on an H100 the limit is 2,864
+    rows for the GRU and 1,304 for the LSTM: too large for this phase.)"""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+    from tpuasr_torch.ops.gru2 import bigru2_forward, bigru2_reference
+    from tpuasr_torch.ops.lstm import bilstm_forward, bilstm_reference
+
+    cuda = torch.device(device)
+    real = gru_mod.max_fwd_rows
+    for i, dt in enumerate(("float32", "bfloat16")):
+        dtype = getattr(torch, dt)
+        k1 = gru_case(t, b, h, 2, dtype, seed=90 + i, device=cuda)
+        k5 = (k1[0].reshape(t, 2, b, 3, h).permute(0, 1, 3, 2, 4).contiguous(),
+              k1[1].reshape(2, h, 3, h).permute(0, 2, 1, 3).contiguous(),
+              k1[2].reshape(2, 3, h).contiguous(), k1[3])
+        k4 = gru_case(t, b, h, 2, dtype, seed=95 + i, device=cuda, n_gates=4)
+        runs = (("bigru_fwd", gru_mod.bigru_forward, gru_mod.bigru_reference, k1),
+                ("bigru2_fwd", bigru2_forward, bigru2_reference, k5),
+                ("bilstm_fwd", bilstm_forward, bilstm_reference, k4))
+        def outs(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        whole = [outs(fn(*args)) for _, fn, _, args in runs]
+        gru_mod.max_fwd_rows = lambda *a: 7
+        try:
+            before = [fn.launches for _, fn, _, _ in runs]
+            grouped = [outs(fn(*args)) for _, fn, _, args in runs]
+            torch.cuda.synchronize()
+            added = [fn.launches - n for (_, fn, _, _), n in zip(runs, before)]
+        finally:
+            gru_mod.max_fwd_rows = real
+        for (name, _, plain, args), one, got, n in zip(runs, whole, grouped, added):
+            check(n == 3, f"{name} row groups: {n} launches for 3 groups")
+            check(all(torch.equal(a, g) for a, g in zip(one, got)),
+                  f"{name} row groups != one launch")
+            for part, g, w in zip(("ys", "cs"), got, outs(plain(*args))):
+                err = check_fwd(f"{name} row groups {part}", g, w, dt)
+                emit("kernel", kernel=name, case=f"row-groups-B{b}-{dt}", part=part,
+                     groups=3, **err)
+
+
+def lstm_cases(cases):
+    """The LSTM's edge cases: B=320 where the GRU's run B=448."""
+    return [(name.replace("B448", "B320"), t, 320 if b == 448 else b, h, nd, dt, lengths)
+            for name, t, b, h, nd, dt, lengths in cases]
 
 
 # (T, B, H) of the kernels' times, D=2, bf16: the 5 s and 16.5 s buckets
 TIMING_SHAPES = ((251, 32, 800), (826, 32, 800))
 
 
-def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
+def phase_kernel_lstm(device="cuda", cases=lstm_cases(NEW_RNN_CASES + BWD_EDGE_CASES
+                                                      + FWD_EDGE_CASES),
                       timing_shapes=TIMING_SHAPES):
     """K4f (ys and cs) and K4b (dhg) against their plain loops, the whole
     BiLSTMFunction against plain forward + backward, then times beside
@@ -539,6 +675,9 @@ def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
                         lengths=lengths)
         ys, cs = bilstm_forward(*args)
         torch.cuda.synchronize()
+        again = bilstm_forward(*args)
+        check(torch.equal(ys, again[0]) and torch.equal(cs, again[1]),
+              f"bilstm_fwd {name}: two calls differ")
         ys_p, cs_p = bilstm_reference(*args)
         fwd = check_fwd(f"bilstm_fwd {name} ys", ys, ys_p, dt)
         fwd_c = check_fwd(f"bilstm_fwd {name} cs", cs, cs_p, dt)
@@ -561,13 +700,8 @@ def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
         ys, cs = bilstm_reference(*args)
         dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
         bwd_args = (*args, shift_time(ys), shift_time(cs), cs, dy)
-        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=4)
-        timings["bilstm_fwd"].append({
-            "shape": [t, nd, b, h], "dtype": "bfloat16",
-            "ms": time_ms(lambda: bilstm_forward(*args), iters=10, warmup=2),
-            "plain_ms": time_ms(lambda: bilstm_reference(*args), iters=2),
-            "library_ms": cudnn_rnn_ms(*args[:3], iters=10, n_gates=4),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        timings["bilstm_fwd"].append(fwd_timing(bilstm_forward, bilstm_reference, args,
+                                                args[:3], t, b, h, nd, n_gates=4))
         emit("kernel_time", kernel="bilstm_fwd", **timings["bilstm_fwd"][-1])
         timings["bilstm_bwd"].append(bwd_timing(bilstm_backward, bilstm_backward_reference,
                                                 bwd_args, args[:3], t, b, h, nd, n_gates=4))
@@ -577,7 +711,7 @@ def phase_kernel_lstm(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
              "bilstm_bwd": first["dhg"]["max_abs_err"]}, timings)
 
 
-def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
+def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES + FWD_EDGE_CASES,
                       timing_shapes=TIMING_SHAPES):
     """K5f and K5b against their plain loops, against K1f and K1b on the
     same relaid-out inputs (bit for bit: one compiled body), the whole
@@ -609,6 +743,7 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
         k5 = (*gate_major(*k1[:3]), k1[3])
         ys = bigru2_forward(*k5)
         torch.cuda.synchronize()
+        check(torch.equal(ys, bigru2_forward(*k5)), f"bigru2_fwd {name}: two calls differ")
         fwd = check_fwd(f"bigru2_fwd {name}", ys, bigru2_reference(*k5), dt)
         ys_k1 = bigru_forward(*k1)
         gen = torch.Generator(device=cuda).manual_seed(i)
@@ -637,13 +772,8 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES,
         ys = bigru2_reference(*args)
         dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
         bwd_args = (*args, shift_time(ys), dy)
-        bound_ms, bound_by = rnn_bound(t, b, h, nd, 2)
-        timings["bigru2_fwd"].append({
-            "shape": [t, nd, b, h], "dtype": "bfloat16",
-            "ms": time_ms(lambda: bigru2_forward(*args), iters=10, warmup=2),
-            "plain_ms": time_ms(lambda: bigru2_reference(*args), iters=2),
-            "library_ms": cudnn_rnn_ms(*k1[:3], iters=10),
-            "bound_ms": bound_ms, "bound_by": bound_by})
+        timings["bigru2_fwd"].append(fwd_timing(bigru2_forward, bigru2_reference, args,
+                                                k1[:3], t, b, h, nd))
         emit("kernel_time", kernel="bigru2_fwd", **timings["bigru2_fwd"][-1])
         timings["bigru2_bwd"].append(bwd_timing(bigru2_backward, bigru2_backward_reference,
                                                 bwd_args, k1[:3], t, b, h, nd))
@@ -944,7 +1074,8 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
     the rest of the RNN backward (dw and db einsums, packing), the clip
     and the SGD step, and the whole step; ``rest`` is what no span
     covers (the backward of the convs, projections, BatchNorms and head,
-    and the global norms). Means over 3 steps after a warm one."""
+    and the global norms). Means over 3 steps after a warm one; then the
+    forward kernel's step split over one more step."""
     import torch
 
     import tpuasr_torch.ops.ctc as ctc_mod
@@ -1030,6 +1161,8 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
            "rest_ms": total - sum(ms[k] for k in top),  # other backward work, norms
            f"rnn_backward_outside_{kb}_ms": ms["rnn_backward_fn"] - ms[kb],
            f"rnn_forward_outside_{kf}_ms": ms["rnn_forward"] - ms[kf],
+           # the forward kernel's step, split (one more step, timer on)
+           f"{kf}_split": split_us(fwd_split(lambda: step(*args)), ms[kf]),
            "nvidia_smi": smi}
     emit("train_breakdown", **row)
     return row
@@ -1082,6 +1215,24 @@ def beam_decoders(alphabet, texts, vocab_size: int = 50000) -> dict:
          caps=[len(k) for k in tables.keys1], salts=list(tables.salts),
          train_ngram_s=t1 - t0, pack_s=time.perf_counter() - t2)
     return decs
+
+
+def wide_beam_decoders(alphabet, texts) -> dict:
+    """K3 past its first limits (W <= 64, char orders <= 6): W=100 with
+    no LM and with the corpus' char and word trigrams, and a char 7-gram
+    (a 36-bit context) at W=10; alpha and beta as ``beam_decoders``."""
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.lm import train_ngram
+
+    kw = dict(cutoff_top_n=BEAM_TOP_N, alpha=0.8, beta=1.0)
+    char_lines = [" ".join("<sp>" if ch == " " else ch for ch in t) for t in texts]
+    return {"none-W100": DeviceBeamDecoder(alphabet, beam_width=100, cutoff_top_n=BEAM_TOP_N),
+            "char-W100": DeviceBeamDecoder(alphabet, beam_width=100,
+                                           char_lm=train_ngram(char_lines, order=3), **kw),
+            "word-W100": DeviceBeamDecoder(alphabet, beam_width=100,
+                                           word_lm=train_ngram(texts, order=3), **kw),
+            "char7": DeviceBeamDecoder(alphabet, beam_width=BEAM_W,
+                                       char_lm=train_ngram(char_lines, order=7), **kw)}
 
 
 def sentence_logits(alphabet, texts, b: int, t: int, seed: int):
@@ -1181,10 +1332,11 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
     """K3 against its plain version on the card, in four LM modes, at
     B=32, W=10, C=44, T'=251 and T'=826, on peaked logits of the corpus
     sentences plus noise and on the trained flagship's logits: equal
-    parents and chars, scores within 1e-5 relative, equal texts; then 4
-    chunked stateful calls against one call; then times beside the bound.
-    ``device`` and ``vocab_size`` other than the defaults only rehearse
-    it on the CPU."""
+    parents and chars, scores within 1e-5 relative, equal texts; the same
+    at T'=251 for W=100 (no LM, char, word) and a char 7-gram
+    (``wide_beam_decoders``); then 4 chunked stateful calls against one
+    call; then times beside the bound. ``device`` and ``vocab_size``
+    other than the defaults only rehearse it on the CPU."""
     import torch
 
     from tpuasr_torch.labels import Alphabet
@@ -1194,16 +1346,19 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
     alphabet = Alphabet()
     texts = corpus_texts(paths)
     decs = beam_decoders(alphabet, texts, vocab_size)
+    wide = wide_beam_decoders(alphabet, texts)
     inputs = {}
     for t, bucket_s in ((251, 5.0), (826, 16.5)):
         inputs[f"sentences-{t}"] = sentence_logits(alphabet, texts, 32, t, seed=t)
         inputs[f"flagship-{t}"] = flagship_logits(out, paths, bucket_s, device)
     worst, rows = 0.0, []
-    for mode, dec in decs.items():
+    for mode, dec in {**decs, **wide}.items():
         for name, (logits, lengths) in inputs.items():
+            if mode in wide and name.endswith("826"):
+                continue  # the wide cases at T'=251 only: their plain version is slow
             lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
-            kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
-                      **dec.kernel_lm_kwargs(lp.shape[2], cuda))
+            kw = dict(beam_width=dec.cfg.beam_width, blank_id=alphabet.blank_id,
+                      cutoff_top_n=BEAM_TOP_N, **dec.kernel_lm_kwargs(lp.shape[2], cuda))
             got = beam_scan(lp, lens, **kw)
             torch.cuda.synchronize()
             want = beam_scan_reference(lp, lens, **kw)
@@ -1211,7 +1366,7 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
             t_got = best_texts(dec, *got, lp.shape[2])
             t_want = best_texts(dec, *want, lp.shape[2])
             row = {"mode": mode, "input": name, "shape": list(lp.shape),
-                   "parents_equal": bool(torch.equal(got[0], want[0])),
+                   "beam_width": dec.cfg.beam_width, "parents_equal": bool(torch.equal(got[0], want[0])),
                    "chars_equal": bool(torch.equal(got[1], want[1])),
                    "score_rel_err": err, "texts_equal": t_got == t_want,
                    "score_abs_err": (got[2] - want[2]).abs().max().item(),
@@ -1224,12 +1379,12 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
 
     # stateful mode: 4 chunked calls equal one call
     logits, lengths = inputs["flagship-251"]
-    for mode, dec in decs.items():
+    for mode, dec in {**decs, "char7": wide["char7"]}.items():
         lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
         kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
                   **dec.kernel_lm_kwargs(lp.shape[2], cuda))
         full = beam_scan(lp, lens, return_state=True, **kw)
-        lm_mode = mode.split("-")[0]
+        lm_mode = mode.split("-")[0].rstrip("7")  # "char7": the char LM
         ring = max(1, dec._word_tables.order - 1) if lm_mode == "word" else 0
         state = make_beam_state(32, BEAM_W, lm_mode=lm_mode, ring_len=ring, device=cuda)
         step = -(-lp.shape[1] // 4)
@@ -1249,14 +1404,16 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
         check(same, f"K3 stateful chunks != one call ({mode})")
 
     timings = []
-    for mode, dec in decs.items():
-        for name in ("flagship-251", "flagship-826"):
+    for mode, dec in {**decs, **wide}.items():
+        for name in ("flagship-251",) if mode in wide else ("flagship-251", "flagship-826"):
             logits, lengths = inputs[name]
             lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
-            kw = dict(beam_width=BEAM_W, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+            w = dec.cfg.beam_width
+            kw = dict(beam_width=w, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
                       **dec.kernel_lm_kwargs(lp.shape[2], cuda))
-            bound_ms, bound_by, ops = beam_bound(lengths, lp.shape[2], BEAM_W, dec)
-            row = {"mode": mode, "shape": list(lp.shape), "frames": int(lengths.sum()),
+            bound_ms, bound_by, ops = beam_bound(lengths, lp.shape[2], w, dec)
+            row = {"mode": mode, "shape": list(lp.shape), "beam_width": w,
+                   "frames": int(lengths.sum()),
                    "ms": time_ms(lambda: beam_scan(lp, lens, **kw), iters=10, warmup=2),
                    "plain_ms": (time_ms(lambda: beam_scan_reference(lp, lens, **kw), iters=1,
                                         warmup=0) if name.endswith("251") else None),
@@ -1606,7 +1763,8 @@ def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
     model's conv blocks, RNN layers (the calls of their kernel, ds2's
     ``fwd_name``, inside them separately), the head, and the whole eval
     step; host clock around the eval step (ending in a synchronize) and
-    the greedy decode."""
+    the greedy decode; then the forward kernel's step split over one more
+    batch."""
     import torch
 
     import tpuasr_torch.model.ds2 as ds2
@@ -1651,6 +1809,7 @@ def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
     t0 = time.perf_counter()
     svc.decoder.decode(logits, out_len, return_offsets=True)
     decode_host_ms = (time.perf_counter() - t0) * 1e3
+    split = fwd_split(lambda: svc.eval_step(arr, lens))
     ms: dict = {}
     for name, s, e in spans:
         ms[name] = ms.get(name, 0.0) + s.elapsed_time(e)
@@ -1664,6 +1823,7 @@ def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
         "rnn_kernel": fwd_name, "rnn_kernel_ms": ms["rnn_kernel"],
         "rnn_outside_kernel_ms": ms["rnn"] - ms["rnn_kernel"],
         "head_bn_ms": ms["head_bn"], "decode_host_ms": decode_host_ms,
+        "rnn_kernel_split": split_us(split, ms["rnn_kernel"]),
     }
 
 
@@ -1715,6 +1875,7 @@ def main() -> int:
     ctc_row, ctc_timing = phase_kernel_ctc()
     k4_err, k4_timings = phase_kernel_lstm()
     k5_err, k5_timings = phase_kernel_gru2()
+    phase_fwd_row_groups()
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)
     train_breakdown(out, paths, smi)

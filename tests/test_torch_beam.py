@@ -242,9 +242,27 @@ def test_wrapper_routes_and_refuses():
     with pytest.raises(ValueError, match="cuda or cpu"):
         ops.beam_scan(lp.to("meta"), lengths.to("meta"), beam_width=3, blank_id=0)
     with pytest.raises(ValueError, match="beam_width"):
-        ops.beam_scan_reference(lp, lengths, beam_width=65, blank_id=0)
-    with pytest.raises(ValueError, match="order 7"):
-        tbeam.DeviceBeamDecoder(ABC, char_lm=train_ngram(CHARS, order=7), alpha=0.5)
+        ops.beam_scan_reference(lp, lengths, beam_width=0, blank_id=0)
+    # K3's limits: the output packing's W <= 254 and C <= 126, char-LM
+    # orders <= 11 (64 bits of context) over <= 64 classes, word orders <= 8
+    assert ops.k3_refusal(254, 126) is None and ops.k3_refusal(10, 5, "char", 11) is None
+    assert ops.k3_refusal(255, 5) == "beam width 255 > 254"
+    assert ops.k3_refusal(10, 127) == "127 classes > 126"
+    assert ops.k3_refusal(10, 5, "char", 12) == "char-LM order 12 > 11"
+    assert "65 classes > 64" in ops.k3_refusal(10, 65, "char", 3)
+    assert ops.k3_refusal(10, 5, "word", 9, 8) == "word-LM order 9 > 8"
+    # the plain version, the CPU's, takes what K3 does not (on a card,
+    # beam_scan raises with the reason before any launch)
+    wide = ops.beam_scan_reference(lp, lengths, beam_width=300, blank_id=0)
+    assert wide[0].shape == (2, 5, 300) and wide[0].dtype == torch.int32
+    lm = train_ngram(CHARS, order=12)
+    dec = tbeam.DeviceBeamDecoder(ABC, beam_width=300, char_lm=lm, alpha=0.5)
+    kw = dec.kernel_lm_kwargs(5)
+    assert ops.k3_refusal(300, 5, "char", kw["char_tables"].order) == "beam width 300 > 254"
+    assert ops.k3_refusal(10, 5, "char", kw["char_tables"].order) == "char-LM order 12 > 11"
+    want = ops.beam_scan_reference(lp, lengths, beam_width=300, blank_id=0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(dec.search(lp, lengths), want))
+    assert ops.beam_scan.launches == before
     with pytest.raises(ValueError, match="impl"):
         tbeam.DeviceBeamDecoder(ABC, impl="bogus")
     dec = tbeam.DeviceBeamDecoder(ABC, impl="pallas")  # accepted; K3 runs regardless

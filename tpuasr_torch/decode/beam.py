@@ -413,21 +413,22 @@ class DeviceBeamDecoder:
     ctcdecode-parity features: word- OR char-level LM fusion, cutoff
     pruning, n-best, per-char frame offsets. Logits on a CUDA device
     decode through K3; logits on the CPU (or numpy) through its plain
-    PyTorch version."""
+    PyTorch version. On a card, a configuration past K3's limits (beam
+    width, classes, LM order, or shared memory: ``ops.beam.k3_refusal``)
+    raises before any launch, naming the reason; so does a K3 launch
+    that fails."""
 
     def __init__(self, alphabet: Alphabet, beam_width: int = 10,
                  char_lm=None, word_lm=None, alpha: float = 0.0,
                  beta: float = 0.0, cutoff_top_n: int = 40,
                  cutoff_prob: float = 1.0, prune_logp: float = -20.0,
                  impl: str = "auto"):
-        from tpuasr_torch.ops.beam import MAX_BEAM, check_lm_order
-
         if char_lm is not None and word_lm is not None:
             raise ValueError("pass char_lm or word_lm, not both")
         if impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"impl must be auto|pallas|xla, got {impl!r}")
-        if not 1 <= beam_width <= MAX_BEAM:
-            raise ValueError(f"beam_width must be in [1, {MAX_BEAM}], got {beam_width}")
+        if beam_width < 1:
+            raise ValueError(f"beam_width must be positive, got {beam_width}")
         # ``impl`` is accepted for compatibility with tpuasr: the port
         # runs K3 whatever it says
         self.alphabet = alphabet
@@ -441,9 +442,6 @@ class DeviceBeamDecoder:
             pack_word_lm_tables(word_lm, alphabet)
             if word_lm is not None else None
         )
-        for kind, tables in (("char", self._lm_tables), ("word", self._word_tables)):
-            if tables is not None:
-                check_lm_order(kind, tables.order)
         self.cfg = BeamConfig(
             beam_width=beam_width,
             blank_id=alphabet.blank_id,
@@ -461,14 +459,10 @@ class DeviceBeamDecoder:
         decoder's LM rides in K3, with its tables on ``device``. Char
         fusion is off when alpha is 0 (the JAX package's rule, beta
         included); word fusion needs the alphabet's space."""
-        from tpuasr_torch.ops.beam import CTX_SHIFT, flat_tables
+        from tpuasr_torch.ops.beam import flat_tables
 
         device = torch.device(device)
         if self._lm_tables is not None and self.cfg.alpha != 0.0:
-            if n_class > (1 << CTX_SHIFT):
-                raise ValueError(
-                    f"char-LM fusion packs class ids in {CTX_SHIFT} bits; "
-                    f"n_class={n_class} exceeds {1 << CTX_SHIFT}")
             if device not in self._flat:
                 self._flat[device] = flat_tables(self._lm_tables, device)
             return dict(char_tables=self._flat[device], alpha=self.cfg.alpha,
@@ -489,7 +483,8 @@ class DeviceBeamDecoder:
         return lp, lengths
 
     def search(self, logprobs, lengths):
-        """K3 over a batch: (parents, chars, scores) on the device."""
+        """The beam over a batch: (parents, chars, scores) on the device
+        (``ops.beam.beam_scan``)."""
         from tpuasr_torch.ops.beam import beam_scan
 
         return beam_scan(

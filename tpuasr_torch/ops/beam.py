@@ -20,14 +20,26 @@ index, mask to -3e38). Frames at or past an utterance's length keep
 its state and emit identity backpointers.
 
 LM fusion probes the packed ``HashedTables`` (``flat_tables``): the
-char LM by the XLA path's ``_char_lm_scores`` recursion over a context
-packed 6 bits per class in an int32 (orders up to ``MAX_CHAR_ORDER``,
-classes up to 64), the word LM by ``_word_lm_score`` with the per-beam
-partial-word hash, completed-word ring and length. Stateful mode
+char LM by the XLA path's ``_char_lm_scores`` recursion over the last
+order - 1 classes of each beam, the word LM by ``_word_lm_score`` with
+the per-beam partial-word hash, completed-word ring and length. K3
+carries the char context packed 6 bits per class in 64 bits (orders up
+to ``MAX_CHAR_ORDER``, classes up to 64); the plain version carries the
+classes themselves and takes any order and class count. Stateful mode
 (``state=`` / ``return_state=True``) carries the beam state in and out
-in ``_state_dtypes`` order, so chunked calls equal one call over the
-concatenation; the returned scores include the word LM's final close,
-which the carried state does not.
+in ``_state_dtypes`` order (the char context packed as K3 packs it), so
+chunked calls equal one call over the concatenation; the returned scores
+include the word LM's final close, which the carried state does not.
+
+K3 takes beam widths up to ``MAX_BEAM`` and classes up to
+``MAX_CLASSES`` (the one-copy output packing's limits), char-LM orders
+up to ``MAX_CHAR_ORDER``, word-LM orders up to ``MAX_WORD_ORDER``, and
+shapes whose shared memory fits the card (``k3_refusal``); past them,
+``beam_scan`` on a CUDA tensor raises before any launch, naming the
+reason. The plain version, which runs for CPU tensors, takes any width,
+class count and LM order, except in stateful mode with a char LM: the
+context it carries there is packed as K3 packs it, so classes up to 64
+and orders up to ``MAX_CHAR_ORDER`` (a stateless call takes any).
 
 Hash arithmetic: torch's uint32 has almost no arithmetic, so the plain
 version computes in int64 and masks to 32 bits after every product
@@ -56,24 +68,47 @@ from tpuasr_torch.decode.beam import (
 )
 from tpuasr_torch.ops import _build
 
-# Char-LM contexts are bit-packed 6 bits per char (class ids < 64),
-# newest char in the low bits.
+# K3 packs a char-LM context 6 bits per char (class ids < 64), newest
+# char in the low bits, in 64 bits.
 CTX_SHIFT = 6
-MAX_BEAM = 64
-MAX_CLASSES = 126
+CTX_BITS = 64
+MAX_BEAM = 254  # K3: the one-copy output packing (decode/beam.py _packable)
+MAX_CLASSES = 126  # K3: int8 backpointers and the output packing
 MAX_WORD_ORDER = 8
-MAX_CHAR_ORDER = 6  # a context of 5 chars fills 30 of the int32's bits
+MAX_CHAR_ORDER = 11  # a context of 10 chars fills 60 of the 64 bits
 PICKED = -3.0e38  # below NEG: a picked candidate never ties a live one
 
 _MASK = 0xFFFFFFFF
 _MODES = {"none": 0, "char": 1, "word": 2}
 
 
-def check_lm_order(kind: str, order: int) -> None:
-    """Raise for an LM order that K3 does not take."""
-    limit = MAX_CHAR_ORDER if kind == "char" else MAX_WORD_ORDER
-    if not 1 <= order <= limit:
-        raise ValueError(f"{kind}-LM order {order}: K3 takes orders 1..{limit}")
+def k3_refusal(beam_width: int, c_num: int, lm_mode: str = "none", order: int = 0,
+               ring: int = 0, device=None) -> str | None:
+    """Why K3 cannot decode this configuration (None: it can). With a
+    CUDA ``device``, also whether its shared memory fits that card (K3's
+    own carve-out, asked of the C side)."""
+    if beam_width > MAX_BEAM:
+        return f"beam width {beam_width} > {MAX_BEAM}"
+    if c_num > MAX_CLASSES:
+        return f"{c_num} classes > {MAX_CLASSES}"
+    if lm_mode == "char":
+        if order > MAX_CHAR_ORDER:
+            return f"char-LM order {order} > {MAX_CHAR_ORDER}"
+        if c_num > (1 << CTX_SHIFT):
+            return f"char-LM fusion packs class ids in {CTX_SHIFT} bits; {c_num} classes > 64"
+    if lm_mode == "word" and order > MAX_WORD_ORDER:
+        return f"word-LM order {order} > {MAX_WORD_ORDER}"
+    if device is not None and torch.device(device).type == "cuda":
+        need, have = _k3_smem(beam_width, c_num, ring, torch.device(device))
+        if need > have:
+            return (f"beam width {beam_width} x {c_num} classes needs {need} bytes of "
+                    f"shared memory > {have}")
+    return None
+
+
+def _lm_order(char_tables, word_tables) -> int:
+    tabs = char_tables if char_tables is not None else word_tables
+    return 0 if tabs is None else int(tabs.order)
 
 
 # ---------------------------------------------------------------- hashing
@@ -193,17 +228,16 @@ def _word_lm_score(wt: FlatTables, wh1, wh2, wc1s, wc2s):
 
 def _char_lm_scores(ct: FlatTables, ctx, c_num: int):
     """(B, W, C) natural-log P(c | context) with the full Katz backoff
-    chain — the XLA path's ``_char_lm_scores``; ``ctx`` (B, W) holds the
-    last max(1, order-1) chars, 6 bits each, newest lowest."""
-    k_ctx = max(1, ct.order - 1)
-    chars = [(ctx >> (CTX_SHIFT * (k_ctx - 1 - i))) & ((1 << CTX_SHIFT) - 1)
-             for i in range(k_ctx)]  # oldest first
+    chain — the XLA path's ``_char_lm_scores``; ``ctx`` (B, W, k) holds
+    the last k = max(1, order-1) chars of each beam, oldest first."""
+    k_ctx = ctx.shape[-1]
+    chars = ctx.unbind(-1)
     cls = torch.arange(c_num, dtype=torch.int64, device=ctx.device)
-    score = torch.full(ctx.shape + (c_num,), NEG, dtype=torch.float32, device=ctx.device)
+    score = torch.full(chars[0].shape + (c_num,), NEG, dtype=torch.float32, device=ctx.device)
     resolved = torch.zeros(score.shape, dtype=torch.bool, device=ctx.device)
     bo_acc = torch.zeros_like(score)
     for m in range(ct.order - 1, -1, -1):
-        h1, h2 = _fold([(x, x) for x in chars[k_ctx - m:]] if m else [], ctx)
+        h1, h2 = _fold([(x, x) for x in chars[k_ctx - m:]] if m else [], chars[0])
         found, val, _ = _probe(ct, m, _mix32(h1[..., None], cls, _M1),
                                _mix32(h2[..., None], cls, _M2))
         score = torch.where(found & ~resolved, bo_acc + val, score)
@@ -216,15 +250,32 @@ def _char_lm_scores(ct: FlatTables, ctx, c_num: int):
 
 # ------------------------------------------------------------------ state
 
+def _pack_ctx(ctx: torch.Tensor) -> torch.Tensor:
+    """(..., k) chars, oldest first -> int64, 6 bits each, newest lowest
+    (K3's context)."""
+    k = ctx.shape[-1]
+    out = torch.zeros(ctx.shape[:-1], dtype=torch.int64, device=ctx.device)
+    for i in range(k):
+        out = (out << CTX_SHIFT) | ctx[..., i]
+    return out
+
+
+def _unpack_ctx(ctx: torch.Tensor, k: int) -> torch.Tensor:
+    """``_pack_ctx``'s inverse: int64 -> (..., k) chars, oldest first."""
+    return torch.stack([(ctx >> (CTX_SHIFT * (k - 1 - i))) & ((1 << CTX_SHIFT) - 1)
+                        for i in range(k)], -1)
+
+
 def _state_dtypes(lm_mode: str, ring_len: int) -> list:
     """Beam-state field dtypes for ``make_beam_state`` and stateful
     calls, in K3's order: pb, pnb, h1, h2, last, [lm], [ctx],
-    [wh1, wh2, wlen, wc1_0.., wc2_0..]."""
+    [wh1, wh2, wlen, wc1_0.., wc2_0..]; ctx is the char context packed
+    in 64 bits (``_pack_ctx``)."""
     dts = [torch.float32, torch.float32, torch.uint32, torch.uint32, torch.int32]
     if lm_mode in ("char", "word"):
         dts.append(torch.float32)  # lm
     if lm_mode == "char":
-        dts.append(torch.int32)  # ctx
+        dts.append(torch.int64)  # ctx
     if lm_mode == "word":
         dts += [torch.uint32, torch.uint32, torch.int32]  # wh1, wh2, wlen
         dts += [torch.uint32] * (2 * ring_len)  # wc1_k then wc2_k
@@ -247,7 +298,7 @@ def make_beam_state(b: int, beam_width: int, *, lm_mode: str = "none",
     if lm_mode in ("char", "word"):
         state.append(np.zeros((b, w), np.float32))  # lm
     if lm_mode == "char":
-        state.append(np.zeros((b, w), np.int32))  # ctx
+        state.append(np.zeros((b, w), np.int64))  # ctx
     if lm_mode == "word":
         state += [np.zeros((b, w), np.uint32), np.zeros((b, w), np.uint32),
                   np.zeros((b, w), np.int32)]
@@ -282,25 +333,20 @@ def _lm_mode(char_tables, word_tables, space_id):
     if word_tables is not None:
         if space_id is None:
             raise ValueError("word-LM fusion needs space_id")
-        check_lm_order("word", word_tables.order)
         return "word", max(1, word_tables.order - 1)
     if char_tables is not None:
-        check_lm_order("char", char_tables.order)
         return "char", 0
     return "none", 0
 
 
-def _check_shapes(logprobs, lengths, beam_width, lm_mode):
+def _check_shapes(logprobs, lengths, beam_width):
     if logprobs.dim() != 3:
         raise ValueError(f"logprobs must be (B, T, C), got {tuple(logprobs.shape)}")
     b, _, c_num = logprobs.shape
-    if not 1 <= beam_width <= MAX_BEAM:
-        raise ValueError(f"beam_width must be in [1, {MAX_BEAM}], got {beam_width}")
-    if not 1 <= c_num <= MAX_CLASSES:
-        raise ValueError(f"K3 takes 1..{MAX_CLASSES} classes, got {c_num}")
-    if lm_mode == "char" and c_num > (1 << CTX_SHIFT):
-        raise ValueError(f"char-LM fusion packs class ids in {CTX_SHIFT} bits; "
-                         f"n_class={c_num} exceeds {1 << CTX_SHIFT}")
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be positive, got {beam_width}")
+    if c_num < 1:
+        raise ValueError(f"logprobs need at least one class, got {c_num}")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
 
@@ -308,7 +354,7 @@ def _check_shapes(logprobs, lengths, beam_width, lm_mode):
 def _out_dtype(beam_width: int, c_num: int):
     # backpointers fit int8 (parent < W, char in [-1, C)), as the TPU
     # kernel's wrapper emits them
-    return torch.int8 if beam_width <= 127 and c_num <= 126 else torch.int32
+    return torch.int8 if beam_width <= 127 and c_num <= MAX_CLASSES else torch.int32
 
 
 # ---------------------------------------------------------- plain version
@@ -321,12 +367,17 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     """Plain PyTorch K3 on any device; arguments and results as
     ``beam_scan``."""
     lm_mode, ring = _lm_mode(char_tables, word_tables, space_id)
-    _check_shapes(logprobs, lengths, beam_width, lm_mode)
+    _check_shapes(logprobs, lengths, beam_width)
     b, t_n, c_num = logprobs.shape
     w, dev = beam_width, logprobs.device
     e_num = w * c_num
     f32 = dict(dtype=torch.float32, device=dev)
     alpha_t, beta_t = torch.tensor(alpha, **f32), torch.tensor(beta, **f32)
+    if lm_mode == "char" and (state is not None or return_state) and (
+            c_num > (1 << CTX_SHIFT) or char_tables.order > MAX_CHAR_ORDER):
+        raise ValueError(f"a stateful char-LM beam carries its context packed {CTX_SHIFT} "
+                         f"bits a class in {CTX_BITS}: classes up to {1 << CTX_SHIFT} and "
+                         f"orders up to {MAX_CHAR_ORDER}")
     if state is None:
         state = make_beam_state(b, w, lm_mode=lm_mode, ring_len=ring, device=dev)
     fields = [f.to(torch.int64) if f.dtype in (torch.uint32, torch.int32) else f
@@ -338,8 +389,8 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     if lm_mode == "word":
         wh1, wh2, wlen = rest[:3]
         wc1s, wc2s = list(rest[3:3 + ring]), list(rest[3 + ring:])
-    k_ctx = max(1, char_tables.order - 1) if lm_mode == "char" else 0
-    ctx_mask = (1 << (CTX_SHIFT * k_ctx)) - 1
+    if lm_mode == "char":  # the last k_ctx chars of each beam, oldest first
+        ctx = _unpack_ctx(ctx, max(1, char_tables.order - 1))
 
     iota_c = torch.arange(c_num, device=dev)
     iota_w = torch.arange(w, device=dev)
@@ -388,7 +439,10 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
             if space_id is not None and beta != 0.0:
                 lm_add = lm_add + torch.where(iota_c == space_id, beta_t, 0.0)
             ext_lm = (lm[:, :, None] + lm_add).reshape(b, e_num)
-            ext_ctx = (((ctx[:, :, None] << CTX_SHIFT) | iota_c) & ctx_mask).reshape(b, e_num)
+            k_ctx = ctx.shape[-1]
+            ext_ctx = torch.cat([ctx[:, :, None, 1:].expand(b, w, c_num, k_ctx - 1),
+                                 iota_c.view(1, 1, c_num, 1).expand(b, w, c_num, 1)],
+                                -1).reshape(b, e_num, k_ctx)
         elif lm_mode == "word":
             ext_lm = (lm[:, :, None] + torch.where(iota_c == space_id, word_bonus[:, :, None],
                                                    0.0)).reshape(b, e_num)
@@ -433,7 +487,9 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
             picks.append(idx)
             score = score.scatter(1, idx, PICKED)
         sel_idx = torch.cat(picks, 1)
-        sel = {k: v.gather(1, sel_idx) for k, v in cand.items()}
+        sel = {k: v.gather(1, sel_idx if v.dim() == 2 else
+                           sel_idx[..., None].expand(-1, -1, v.shape[-1]))
+               for k, v in cand.items()}
 
         # ---- freeze state past each utterance's length ----
         pb = torch.where(alive, sel["pb"], pb)
@@ -468,7 +524,7 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
         if lm_mode != "none":
             lm = torch.where(alive, sel["lm"], lm)
         if lm_mode == "char":
-            ctx = torch.where(alive, sel["ctx"], ctx)
+            ctx = torch.where(alive[..., None], sel["ctx"], ctx)
         parents[:, t] = torch.where(alive, sel["parent"], iota_w)
         chars[:, t] = torch.where(alive, sel["new"], -1)
 
@@ -479,7 +535,7 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     if lm_mode != "none":
         state_out.append(lm)
     if lm_mode == "char":
-        state_out.append(ctx)
+        state_out.append(_pack_ctx(ctx) if return_state else None)
     if lm_mode == "word":
         # close the final partial word (ctcdecode finish_decoding); the
         # carried state does not include it
@@ -507,15 +563,54 @@ def _lib() -> ctypes.CDLL:
         + [f, f, i, i, i]  # alpha, beta, space, has_beta, ring
         + [p, p, p, p, p, i, p])  # state_in, state_out, parents, chars, scores, out8, stream
     lib.tpuasr_beam_scan.restype = ctypes.c_int
+    lib.tpuasr_beam_smem.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.tpuasr_beam_smem.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _stack_state(fields, dev):
-    """State fields -> one contiguous (n_fields, B, W) int32 tensor of
-    their bit patterns (K3 reads f32 and uint32 fields through it)."""
-    return torch.stack([f.contiguous().view(torch.int32) for f in fields]).contiguous()
+@functools.cache
+def _k3_smem(beam_width: int, c_num: int, ring: int, device: torch.device) -> tuple[int, int]:
+    """(K3's shared memory at this shape, the card's opt-in limit), in
+    bytes, from the C side."""
+    lib = _lib()
+    need, have = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.tpuasr_beam_smem(beam_width, c_num, ring, ctypes.byref(need),
+                                   ctypes.byref(have))
+    if err != 0:
+        msg = lib.tpuasr_cuda_error_string(err).decode()
+        raise RuntimeError(f"tpuasr_beam_smem failed: {msg} ({err})")
+    return need.value, have.value
+
+
+def _stack_state(fields):
+    """State fields -> one contiguous (n_rows, B, W) int32 tensor of their
+    bit patterns (K3 reads f32 and uint32 fields through it; the int64
+    char context as two rows, its low then its high 32 bits)."""
+    rows = []
+    for f in fields:
+        f = f.contiguous()
+        if f.dtype == torch.int64:
+            rows += list(f.view(torch.int32).reshape(*f.shape, 2).unbind(-1))
+        else:
+            rows.append(f.view(torch.int32))
+    return torch.stack(rows).contiguous()
+
+
+def _unstack_state(rows, dtypes) -> tuple:
+    """``_stack_state``'s inverse."""
+    fields, i = [], 0
+    for dt in dtypes:
+        if dt == torch.int64:
+            fields.append(torch.stack([rows[i], rows[i + 1]], -1).contiguous()
+                          .view(torch.int64)[..., 0])
+            i += 2
+        else:
+            fields.append(rows[i].view(dt))
+            i += 1
+    return tuple(fields)
 
 
 def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
@@ -536,8 +631,9 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
       W <= 127 and C <= 126, else int32), scores (B, W) f32 unsorted;
       with ``return_state`` the post-scan state tuple appended.
 
-    CUDA tensors run K3 (one launch, counted in ``beam_scan.launches``);
-    CPU tensors run ``beam_scan_reference``."""
+    CUDA tensors run K3 (one launch, counted in ``beam_scan.launches``),
+    or raise for a configuration past its limits (``k3_refusal``); CPU
+    tensors run ``beam_scan_reference``."""
     kw = dict(beam_width=beam_width, blank_id=blank_id, cutoff_top_n=cutoff_top_n,
               cutoff_prob=cutoff_prob, prune_logp=prune_logp, char_tables=char_tables,
               word_tables=word_tables, alpha=alpha, beta=beta, space_id=space_id,
@@ -547,9 +643,12 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
     if logprobs.device.type != "cuda":
         raise ValueError(f"beam_scan runs on cuda or cpu, not {logprobs.device}")
     lm_mode, ring = _lm_mode(char_tables, word_tables, space_id)
-    _check_shapes(logprobs, lengths, beam_width, lm_mode)
+    _check_shapes(logprobs, lengths, beam_width)
     b, t_n, c_num = logprobs.shape
     w, dev = beam_width, logprobs.device
+    why_not = k3_refusal(w, c_num, lm_mode, _lm_order(char_tables, word_tables), ring, dev)
+    if why_not is not None:
+        raise ValueError(f"K3 does not take this configuration: {why_not}")
     if logprobs.dtype != torch.float32 or not logprobs.is_contiguous():
         raise ValueError("logprobs must be contiguous float32")
     if lengths.dtype != torch.int32 or lengths.device != dev:
@@ -561,9 +660,10 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
         raise ValueError(f"LM tables are on {tabs.keys1.device}, not {dev}")
     state_in = None
     if state is not None:
-        state_in = _stack_state(_check_state(state, b, w, lm_mode, ring, dev), dev)
-    n_fields = len(_state_dtypes(lm_mode, ring))
-    state_out = (torch.empty((n_fields, b, w), dtype=torch.int32, device=dev)
+        state_in = _stack_state(_check_state(state, b, w, lm_mode, ring, dev))
+    dtypes = _state_dtypes(lm_mode, ring)
+    n_rows = len(dtypes) + sum(dt == torch.int64 for dt in dtypes)
+    state_out = (torch.empty((n_rows, b, w), dtype=torch.int32, device=dev)
                  if return_state else None)
     out_dt = _out_dtype(w, c_num)
     parents = torch.empty((b, t_n, w), dtype=out_dt, device=dev)
@@ -596,9 +696,7 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
         raise RuntimeError(f"tpuasr_beam_scan kernel launch failed: {msg} ({err})")
     beam_scan.launches += 1
     if return_state:
-        fields = tuple(state_out[i].view(dt) for i, dt in
-                       enumerate(_state_dtypes(lm_mode, ring)))
-        return parents, chars, scores, fields
+        return parents, chars, scores, _unstack_state(state_out, dtypes)
     return parents, chars, scores
 
 

@@ -32,16 +32,22 @@
 // path's _probe does: n_probes consecutive slots from the home slot
 // (h1 & (cap-1), or fmix32(h1 ^ salt) & (cap-1)); a hit needs both keys
 // equal and the slot non-empty. The char LM runs the _char_lm_scores
-// recursion with the context packed 6 bits a class (newest lowest), the
-// word LM _word_lm_score with the partial-word hash, the completed-word
-// ring and the partial length. Products by alpha use __fmul_rn/__fadd_rn so
-// that nvcc does not contract them into an FMA the plain version lacks.
+// recursion with the context packed 6 bits a class (newest lowest) in 64
+// bits, so char orders up to 11 fuse; the word LM _word_lm_score with the
+// partial-word hash, the completed-word ring and the partial length.
+// Products by alpha use __fmul_rn/__fadd_rn so that nvcc does not contract
+// them into an FMA the plain version lacks.
+//
+// Limits: W <= 254 and C <= 126 (the one-copy output packing), char-LM
+// orders <= 11 with C <= 64, word-LM orders <= 8, and the shared memory of
+// (W, C, ring) within the card's opt-in limit (tpuasr_beam_smem). The
+// decoder runs the plain version on the device past them, and says so.
 //
 // Layouts: lp (B, T, C) f32; lengths (B) int32; parents, chars (B, T, W)
 // int8 or int32; scores (B, W) f32; state (n_fields, B, W) int32 bit
-// patterns in the order pb, pnb, h1, h2, last, [lm], [ctx], [wh1, wh2,
-// wlen, wc1_0.., wc2_0..]; tables all orders concatenated, meta (order, 3)
-// = offset, cap, salt.
+// patterns in the order pb, pnb, h1, h2, last, [lm], [ctx lo, ctx hi],
+// [wh1, wh2, wlen, wc1_0.., wc2_0..]; tables all orders concatenated, meta
+// (order, 3) = offset, cap, salt.
 //
 // Bound. At B=32, T'=251, W=10, C=44 the work is ~20 k f32 operations a
 // frame and utterance (the C*C rank compares, the 450-candidate pool's
@@ -73,11 +79,12 @@ constexpr float OOV_LOGP = -20.0f;
 constexpr float WORD_OOV_NAT = static_cast<float>(-99.0 * 2.302585092994046);
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_W = 64;
-constexpr int MAX_C = 126;
-constexpr int MAX_ORDER = 8;
-constexpr int MAX_RING = MAX_ORDER - 1;
-constexpr int MAX_CHAR_ORDER = 6;
+constexpr int MAX_W = 254;  // the one-copy output packing's limit (decode/beam.py)
+constexpr int MAX_C = 126;  // int8 backpointers and the output packing
+constexpr int MAX_WORD_ORDER = 8;
+constexpr int MAX_RING = MAX_WORD_ORDER - 1;
+constexpr int MAX_CHAR_ORDER = 11;  // a context of 10 chars fills 60 of 64 bits
+constexpr int MAX_ORDER = MAX_CHAR_ORDER;
 constexpr int CTX_SHIFT = 6;
 constexpr uint32_t M1 = 0x9E3779B1u;
 constexpr uint32_t M2 = 0x85EBCA77u;
@@ -118,7 +125,8 @@ struct Params {
 struct Smem {
   float *lp, *pb, *pnb, *lm, *ptot, *spb, *spnb, *bonus, *cbo, *ext, *extlm,
       *score, *wmax;
-  int *keep, *last, *ctx, *wlen, *spar, *snew, *sel;
+  int *keep, *last, *wlen, *spar, *snew, *sel;
+  uint64_t* ctx;
   uint32_t *h1, *h2, *wh1, *wh2, *wc1, *wc2, *weff1, *weff2, *ch1, *ch2;
   unsigned char* flag;
 };
@@ -127,11 +135,13 @@ __host__ __device__ inline size_t carve(unsigned char* base, int W, int C,
                                         int ring, Smem* s) {
   const size_t E = static_cast<size_t>(W) * C, P = W + E;
   size_t off = 0;
-  auto take = [&](size_t n) {
+  auto take = [&](size_t n) {  // n 4-byte words
     unsigned char* p = base ? base + off : nullptr;
     off += 4 * n;
     return p;
   };
+  // the 8-byte char contexts first, at offset 0: [2][W]
+  s->ctx = reinterpret_cast<uint64_t*>(take(4 * static_cast<size_t>(W)));
   s->lp = reinterpret_cast<float*>(take(C));
   s->keep = reinterpret_cast<int*>(take(C));
   // double-buffered beam state: [2][W] (rings [2][ring][W])
@@ -141,7 +151,6 @@ __host__ __device__ inline size_t carve(unsigned char* base, int W, int C,
   s->h1 = reinterpret_cast<uint32_t*>(take(2 * W));
   s->h2 = reinterpret_cast<uint32_t*>(take(2 * W));
   s->last = reinterpret_cast<int*>(take(2 * W));
-  s->ctx = reinterpret_cast<int*>(take(2 * W));
   s->wh1 = reinterpret_cast<uint32_t*>(take(2 * W));
   s->wh2 = reinterpret_cast<uint32_t*>(take(2 * W));
   s->wlen = reinterpret_cast<int*>(take(2 * W));
@@ -283,7 +292,7 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
   const int W = p.W, C = p.C, E = W * C, P = W + E, ring = p.ring;
   const int T = p.T;
   const int len = min(max(p.lengths[b], 0), T);
-  const int ctx_mask = (1 << (CTX_SHIFT * p.ctx_len)) - 1;
+  const uint64_t ctx_mask = (1ull << (CTX_SHIFT * p.ctx_len)) - 1ull;
 
   // ---- initial state (buffer 0) ----
   for (int j = tid; j < W; j += THREADS) {
@@ -296,7 +305,10 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       s.h2[j] = static_cast<uint32_t>(f(k++));
       s.last[j] = f(k++);
       if (LM != LM_NONE) s.lm[j] = __int_as_float(f(k++));
-      if (LM == LM_CHAR) s.ctx[j] = f(k++);
+      if (LM == LM_CHAR) {  // two fields: the low and the high 32 bits
+        const uint32_t lo = static_cast<uint32_t>(f(k++));
+        s.ctx[j] = static_cast<uint64_t>(lo) | (static_cast<uint64_t>(static_cast<uint32_t>(f(k++))) << 32);
+      }
       if (LM == LM_WORD) {
         s.wh1[j] = static_cast<uint32_t>(f(k++));
         s.wh2[j] = static_cast<uint32_t>(f(k++));
@@ -310,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       s.h1[j] = s.h2[j] = j == 0 ? 0u : static_cast<uint32_t>(j + 1);
       s.last[j] = -1;
       s.lm[j] = 0.0f;
-      s.ctx[j] = 0;
+      s.ctx[j] = 0ull;
       s.wh1[j] = s.wh2[j] = 0u;
       s.wlen[j] = 0;
       for (int r = 0; r < ring; ++r) {
@@ -359,11 +371,11 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
         s.bonus[j] = s.wlen[co + j] > 0 ? __fadd_rn(__fmul_rn(p.alpha, ws), p.beta) : 0.0f;
       }
       if (LM == LM_CHAR) {
-        const int ctx = s.ctx[co + j];
+        const uint64_t ctx = s.ctx[co + j];
         for (int m = 0; m < p.tb.order; ++m) {
           uint32_t a1 = 0u, a2 = 0u;
           for (int i = p.ctx_len - m; i < p.ctx_len; ++i) {
-            const uint32_t x = (ctx >> (CTX_SHIFT * (p.ctx_len - 1 - i))) & 63;
+            const uint32_t x = static_cast<uint32_t>(ctx >> (CTX_SHIFT * (p.ctx_len - 1 - i))) & 63u;
             a1 = mix32(a1, x, M1);
             a2 = mix32(a2, x, M2);
           }
@@ -524,7 +536,8 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
         s.h2[no + k] = mix32(s.h2[co + j], c, M2);
         s.last[no + k] = c;
         if (LM != LM_NONE) s.lm[no + k] = s.extlm[e];
-        if (LM == LM_CHAR) s.ctx[no + k] = ((s.ctx[co + j] << CTX_SHIFT) | c) & ctx_mask;
+        if (LM == LM_CHAR)
+          s.ctx[no + k] = ((s.ctx[co + j] << CTX_SHIFT) | static_cast<uint64_t>(c)) & ctx_mask;
         par = j;
         nc = c;
       }
@@ -575,7 +588,10 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       put(k++, static_cast<int>(s.h2[co + j]));
       put(k++, s.last[co + j]);
       if (LM != LM_NONE) put(k++, __float_as_int(s.lm[co + j]));
-      if (LM == LM_CHAR) put(k++, s.ctx[co + j]);
+      if (LM == LM_CHAR) {
+        put(k++, static_cast<int>(static_cast<uint32_t>(s.ctx[co + j])));
+        put(k++, static_cast<int>(static_cast<uint32_t>(s.ctx[co + j] >> 32)));
+      }
       if (LM == LM_WORD) {
         put(k++, static_cast<int>(s.wh1[co + j]));
         put(k++, static_cast<int>(s.wh2[co + j]));
@@ -650,6 +666,7 @@ int tpuasr_beam_scan(const float* lp, const int* lengths, int B, int T, int C,
   if (lm_mode != LM_NONE) {
     if (order < 1 || order > MAX_ORDER || n_probes < 1 || meta == nullptr) return invalid;
     if (lm_mode == LM_CHAR && (order > MAX_CHAR_ORDER || C > (1 << CTX_SHIFT))) return invalid;
+    if (lm_mode == LM_WORD && order > MAX_WORD_ORDER) return invalid;
     if (lm_mode == LM_WORD && (ring < 1 || ring > MAX_RING || space < 0 || space >= C))
       return invalid;
     p.tb.k1 = k1;
@@ -679,6 +696,19 @@ int tpuasr_beam_scan(const float* lp, const int* lengths, int B, int T, int C,
     default:
       return launch<LM_NONE>(p, smem, st);
   }
+}
+
+// K3's dynamic shared memory for (W, C, ring) in *bytes and this card's
+// opt-in limit a block in *optin: K3 takes the shape when bytes <= optin
+// (ops/beam.py asks before it launches). Returns a CUDA error code.
+int tpuasr_beam_smem(int W, int C, int ring, int* bytes, int* optin) {
+  Smem s;
+  *bytes = static_cast<int>(carve(nullptr, W, C, ring, &s));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }
 
 const char* tpuasr_cuda_error_string(int err) {

@@ -17,31 +17,29 @@
 // cores (operations).
 //
 // Design. On Hopper no layout forces a relayout, so K5f runs K1f's
-// compiled body (rnn.cuh: gru_fwd_step) with the gate-major strides:
-// the same loads, the same FMAs in the same order. K5f therefore equals
+// compiled loop (rnn_fwd.cuh: rnn_fwd_loop) with the gate-major strides:
+// the loop pins w_h's columns in K1's order and reads xg through its
+// strides, so every load, product and sum is K1f's. K5f therefore equals
 // K1f bit for bit on the same weights, and every later speed-up of K1f
 // is K5f's too.
 
-#include "rnn.cuh"
+#include "rnn_fwd.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xg, w_h and ys share it).
-// Returns cudaGetLastError() after the launches (0 = success).
-int tpuasr_bigru2_fwd(const void* xg, const void* w_h, const float* b_h,
-                      const float* mask, void* ys, int T_len, int D, int B,
-                      int H, int dtype, void* stream) {
+// As tpuasr_bigru_fwd, for xg (T, D, 3, B, H) and w_h (D, 3, H, H).
+int tpuasr_bigru2_fwd(const void* xg, const void* w_h, const float* b_h, const float* mask,
+                      void* ys, unsigned int* bar, long long* timer, const int* layout,
+                      int T_len, int D, int B, int H, int dtype, void* stream) {
   using namespace tpuasr_rnn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t h = H;
-  const GateStrides xs{3 * B * h, h, B * h};  // (D, 3, B, H)
-  const WLayout wl{H, H * H};                 // (3, H, H)
-  if (dtype == 0)
-    return gru_fwd_all<float>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D, B, H, s);
-  if (dtype == 1)
-    return gru_fwd_all<__nv_bfloat16>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D,
-                                      B, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_loop<3>(xg, GateStrides{3 * B * h, h, B * h}, w_h, WLayout{H, H * H}, b_h, mask,
+                     ys, nullptr, bar, timer, layout, T_len, D, B, H, dtype,
+                     static_cast<cudaStream_t>(stream));
+}
+
+int tpuasr_rnn_device_limits(int* n_sms, int* smem_optin) {
+  return tpuasr_rnn::device_limits(n_sms, smem_optin);
 }
 
 const char* tpuasr_cuda_error_string(int err) {

@@ -19,39 +19,38 @@
 // serving shape (T=251, B=32, H=800, D=2) 61.7 GFLOP in all, 62 us on
 // the bf16 tensor cores, against 110.6 MB of xg/ys/w_h/mask traffic
 // (33 us at 3.35 TB/s) — operations bound it. The time loop is strictly
-// sequential, though, and one step is far too small to fill the card.
+// sequential, though, and one step is far too small to fill the card:
+// what bounds a step in practice is the grid-wide exchange of h_t.
 //
-// Design (the simple first version; rnn.cuh holds the body it shares
-// with K5f and K4f). One launch per time step covers both directions;
-// the stream orders the steps, and step t reads ys[t-1] as its h, so no
-// block exchanges anything within a step. A block owns 16 hidden units
-// of one direction for 32 batch rows: h_{t-1} staged in shared memory as
-// f32, the k reduction split over 8 warps, w_h read from L2, CUDA-core
-// f32 FMAs. Its FMAs alone would take ~5 us a step on 100 SMs; on an
-// H100 a step takes ~29 us (PERF.md). Left for later: a persistent
-// kernel with w_h pinned in shared memory across the SMs, a grid
-// barrier per step, and tensor-core products.
+// Design (rnn_fwd.cuh, shared with K5f and K4f): one persistent,
+// cooperative launch per call. 100 blocks at the flagship shape, each
+// owning 16 units of one direction with their 3 x 16 columns of w_h
+// pinned in shared memory (76.8 KB) for the whole call; per step one grid
+// barrier, each block's read of its direction's h_{t-1} (51.2 KB of
+// ys[t-1]) from L2, the product on mma.sync m16n8k16 (600 tiles a block)
+// and the gate math in registers. It replaced one launch per step, whose
+// blocks re-read w_h from L2 and ran the product on f32 FMAs (PERF.md).
 
-#include "rnn.cuh"
+#include "rnn_fwd.cuh"
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xg, w_h and ys share it).
-// Returns cudaGetLastError() after the launches (0 = success).
-int tpuasr_bigru_fwd(const void* xg, const void* w_h, const float* b_h,
-                     const float* mask, void* ys, int T_len, int D, int B,
-                     int H, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (xg, w_h and ys share it). bar: one
+// zeroed uint32; timer: null or (n_blocks, 5) int64; layout:
+// rnn_plan.FwdPlan.as_ints(). Returns cudaGetLastError() after the launch
+// (0 = success), or the refusal of a grid that cannot be co-resident.
+int tpuasr_bigru_fwd(const void* xg, const void* w_h, const float* b_h, const float* mask,
+                     void* ys, unsigned int* bar, long long* timer, const int* layout,
+                     int T_len, int D, int B, int H, int dtype, void* stream) {
   using namespace tpuasr_rnn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t h = H;
-  const GateStrides xs{B * 3 * h, 3 * h, h};  // (D, B, 3H)
-  const WLayout wl{3 * H, H};                 // (H, 3H)
-  if (dtype == 0)
-    return gru_fwd_all<float>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D, B, H, s);
-  if (dtype == 1)
-    return gru_fwd_all<__nv_bfloat16>(xg, xs, w_h, wl, b_h, mask, ys, T_len, D,
-                                      B, H, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_loop<3>(xg, GateStrides{B * 3 * h, 3 * h, h}, w_h, WLayout{3 * H, H}, b_h, mask,
+                     ys, nullptr, bar, timer, layout, T_len, D, B, H, dtype,
+                     static_cast<cudaStream_t>(stream));
+}
+
+int tpuasr_rnn_device_limits(int* n_sms, int* smem_optin) {
+  return tpuasr_rnn::device_limits(n_sms, smem_optin);
 }
 
 const char* tpuasr_cuda_error_string(int err) {

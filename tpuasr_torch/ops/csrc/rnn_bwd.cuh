@@ -107,16 +107,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -126,21 +116,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo, v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// w_h[d] at row k, flat column c = g*H + j, zero past H rows and NG*H
-// columns.
-template <typename T>
-__device__ __forceinline__ T w_at(const T* w_d, WLayout wl, int k, int c, int H, int G) {
-  if (k >= H || c >= G) return from_f32<T>(0.0f);
-  const int g = c / H;
-  return w_d[static_cast<size_t>(k) * wl.wk + static_cast<size_t>(g) * wl.wg + (c - g * H)];
 }
 
 // ------------------------------------------------------------- hg GEMM
@@ -344,26 +319,6 @@ int hg_gemm(const void* hp, const void* w_h, WLayout wl, const float* b_h, float
 }
 
 // ------------------------------------------------------ persistent loop
-
-// Every block at the barrier of step i (0, 1, ...) before any goes on.
-// The counter only grows: the target of step i is (i + 1) * gridDim.x.
-__device__ __forceinline__ void grid_barrier(unsigned int* bar, unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(bar), "r"(1u)
-                 : "memory");
-    unsigned int seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen)
-                   : "l"(bar)
-                   : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 constexpr int BW_WARPS = BW_THREADS / 32;  // column ranges of the carry product
 constexpr int BW_PREFETCH = 3;  // k-steps of dhg a warp has in flight
@@ -708,24 +663,11 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
 // be co-resident (never a hang, never a fallback).
 template <typename T, int NG>
 int launch_loop(const BwdArgs<T>& args, const BwdLayout& L, cudaStream_t stream) {
-  auto kernel = &rnn_bwd_loop<T, NG>;
-  cudaError_t err = allow_smem(kernel, L.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, n_sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BW_THREADS, L.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm * n_sms < L.n_blocks) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   BwdArgs<T> a = args;
   BwdLayout l = L;
   void* params[] = {&a, &l};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(L.n_blocks),
-                                    dim3(BW_THREADS), params, L.smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cooperative(&rnn_bwd_loop<T, NG>, L.n_blocks, BW_THREADS, L.smem, params,
+                            stream);
 }
 
 inline BwdLayout read_layout(const int* v) {
@@ -763,17 +705,6 @@ inline int bwd_hg(const void* hp, const void* w_h, WLayout wl, const float* b_h,
   if (dtype == 1)
     return hg_gemm<__nv_bfloat16>(hp, w_h, wl, b_h, hg, T_len, D, B, H, NG, HP, stream);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The card's SM count and opt-in shared memory per block.
-inline int device_limits(int* n_sms, int* smem_optin) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return static_cast<int>(err);
 }
 
 }  // namespace tpuasr_rnn

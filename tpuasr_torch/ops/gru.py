@@ -1,8 +1,8 @@
 """Fused bidirectional GRU time loop (port of ``tpuasr/ops/gru.py``).
 
 ``bigru_forward`` is the wrapper of the hand-written Hopper kernel
-``csrc/bigru_fwd.cu``, which replaces the TPU kernel
-``tpuasr/ops/gru.py:_fwd_kernel``. ``bigru_reference`` is its plain
+``csrc/bigru_fwd.cu`` (one persistent launch a call, ``csrc/rnn_fwd.cuh``),
+which replaces the TPU kernel ``tpuasr/ops/gru.py:_fwd_kernel``. ``bigru_reference`` is its plain
 PyTorch version with the same numerics: the recurrent product and
 ``b_h`` in f32, gate math in f32, the carried h rounded to xg's dtype
 every step, masked frames carrying h through.
@@ -30,7 +30,13 @@ import functools
 import torch
 
 from tpuasr_torch.ops import _build
-from tpuasr_torch.ops.rnn_plan import rnn_bwd_plan
+from tpuasr_torch.ops.rnn_plan import (
+    max_bwd_rows,
+    max_fwd_rows,
+    rnn_bwd_plan,
+    rnn_fwd_plan,
+    row_groups,
+)
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -180,17 +186,19 @@ def check_states(xg: torch.Tensor, shape: tuple, **states: torch.Tensor) -> None
 
 @functools.cache
 def kernel_library(name: str) -> ctypes.CDLL:
-    """The library of a GRU kernel, ``bigru[2]_fwd``, or of a backward
-    kernel, ``bigru[2]_bwd`` or ``bilstm_bwd`` (built on first use), with
-    its C signatures; the three backward libraries share theirs."""
+    """The library of an RNN kernel (built on first use), ``bigru[2]_fwd``,
+    ``bilstm_fwd``, ``bigru[2]_bwd`` or ``bilstm_bwd``, with its C
+    signatures; the forward libraries share theirs (the LSTM's adds cs),
+    and so do the backward ones."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name.endswith("fwd"):
-        fns = {f"tpuasr_{name}": [p] * 5 + [i] * 5 + [p]}
+        n_out = 2 if name == "bilstm_fwd" else 1  # ys (and cs)
+        fns = {f"tpuasr_{name}": [p] * (4 + n_out) + [p] * 3 + [i] * 5 + [p]}
     else:
         fns = {f"tpuasr_{name}_hg": [p] * 4 + [i] * 6 + [p],
-               f"tpuasr_{name}_loop": [p] * 12 + [i] * 5 + [p],
-               "tpuasr_rnn_device_limits": [ctypes.POINTER(i)] * 2}
+               f"tpuasr_{name}_loop": [p] * 12 + [i] * 5 + [p]}
+    fns["tpuasr_rnn_device_limits"] = [ctypes.POINTER(i)] * 2
     for fn_name, argtypes in fns.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
@@ -218,67 +226,150 @@ def _device_limits(name: str, index: int) -> tuple[int, int]:
     return torch.cuda.get_device_properties(index).multi_processor_count, smem.value
 
 
-BWD_LAUNCHES = 2  # per backward call: the hg GEMM and the persistent loop
+def _card(name: str, dev: torch.device) -> tuple[int, int]:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _device_limits(name, index)
+
+
+def _rows(x: torch.Tensor, axis: int, b0: int, b1: int) -> torch.Tensor:
+    """Rows b0 .. b1 - 1 of a tensor whose batch axis is ``axis``,
+    contiguous (the tensor itself when they are all of its rows)."""
+    if b0 == 0 and b1 == x.shape[axis]:
+        return x
+    return x.narrow(axis, b0, b1 - b0).contiguous()
+
+
+BWD_LAUNCHES = 2  # per backward call and row group: the hg GEMM and the persistent loop
 # A list to time the backward's two launches: each call appends CUDA
-# events {"hg": (start, end), "loop": (start, end)}; None: no events.
+# events {"hg": (start, end), "loop": (start, end)} per row group; None:
+# no events.
 bwd_events: list | None = None
 
 
 def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
                  b_h: torch.Tensor, mask: torch.Tensor, h_prev: torch.Tensor,
                  dy: torch.Tensor, out: torch.Tensor, c_prev: torch.Tensor | None = None,
-                 cs: torch.Tensor | None = None) -> None:
+                 cs: torch.Tensor | None = None, batch_axis: int = 2) -> int:
     """Launch a fused RNN backward (``csrc/rnn_bwd.cuh``) into ``out``:
     the hg GEMM over every step, then the persistent reverse loop, tiled
     by ``rnn_bwd_plan`` for this card. ``name`` is the library
     (``bigru_bwd``, ``bigru2_bwd``, ``bilstm_bwd``); inputs are checked by
-    the caller. Appends the launches' CUDA events to ``bwd_events`` when
-    that is a list."""
+    the caller; ``batch_axis`` is the batch axis of xg and out (3 in the
+    gate-major layout; 2 in every other tensor). A batch larger than one
+    plan holds (``max_bwd_rows``) runs in row groups, each its own GEMM
+    and loop: every row's recursion is independent, so the result is
+    that of one call. A group's rows are copied into contiguous tensors
+    (and its output back), so that the kernels index one batch size; the
+    copies are taken only past the plan's limit (422 rows at BiGRU-800 on
+    an H100). Appends the launches' CUDA events to ``bwd_events`` when
+    that is a list. Returns the number of row groups."""
     t_len, nd = xg.shape[:2]
     b, h = h_prev.shape[2], h_prev.shape[3]
     dev = xg.device
     lib = kernel_library(name)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    n_sms, smem = _device_limits(name, index)
-    plan = rnn_bwd_plan(nd, b, h, n_gates, xg.element_size(), n_sms, smem)
-    f32 = dict(dtype=torch.float32, device=dev)
-    hg = torch.empty((t_len, nd, b, n_gates, plan.HP), **f32)  # hg of every step
-    dhg = torch.zeros((2, nd, b, plan.GP), **f32)  # dhg of steps t % 2 (put_dhg); pad stays 0
-    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
-    ints = plan.as_ints()
-    layout = (ctypes.c_int * len(ints))(*ints)
+    n_sms, smem = _card(name, dev)
+    groups = row_groups(b, max_bwd_rows(nd, h, n_gates, xg.element_size(), n_sms, smem))
     code = DTYPE_CODE[xg.dtype]
     ptr = (lambda x: None if x is None else x.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ev = None if bwd_events is None else [
-            torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        if ev:
-            ev[0].record()
-        err = getattr(lib, f"tpuasr_{name}_hg")(
-            h_prev.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), hg.data_ptr(),
-            t_len, nd, b, h, plan.HP, code, stream)
-        raise_on(lib, err, f"{name} hg")
-        if ev:
-            ev[1].record()
-        err = getattr(lib, f"tpuasr_{name}_loop")(
-            xg.data_ptr(), w_h.data_ptr(), mask.data_ptr(), h_prev.data_ptr(), ptr(c_prev),
-            ptr(cs), dy.data_ptr(), hg.data_ptr(), out.data_ptr(), dhg.data_ptr(),
-            bar.data_ptr(), layout, t_len, nd, b, h, code, stream)
-        raise_on(lib, err, f"{name} loop")
-        if ev:
-            ev[2].record()
-            bwd_events.append({"hg": (ev[0], ev[1]), "loop": (ev[1], ev[2])})
+    f32 = dict(dtype=torch.float32, device=dev)
+    for b0, b1 in groups:
+        bg = b1 - b0
+        plan = rnn_bwd_plan(nd, bg, h, n_gates, xg.element_size(), n_sms, smem)
+        xg_g, out_g = _rows(xg, batch_axis, b0, b1), _rows(out, batch_axis, b0, b1)
+        mask_g, hp_g, dy_g = (_rows(x, 2, b0, b1) for x in (mask, h_prev, dy))
+        cp_g, cs_g = (None if x is None else _rows(x, 2, b0, b1) for x in (c_prev, cs))
+        hg = torch.empty((t_len, nd, bg, n_gates, plan.HP), **f32)  # hg of every step
+        dhg = torch.zeros((2, nd, bg, plan.GP), **f32)  # dhg of steps t % 2 (put_dhg); pad stays 0
+        bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
+        ints = plan.as_ints()
+        layout = (ctypes.c_int * len(ints))(*ints)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            ev = None if bwd_events is None else [
+                torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            if ev:
+                ev[0].record()
+            err = getattr(lib, f"tpuasr_{name}_hg")(
+                hp_g.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), hg.data_ptr(),
+                t_len, nd, bg, h, plan.HP, code, stream)
+            raise_on(lib, err, f"{name} hg")
+            if ev:
+                ev[1].record()
+            err = getattr(lib, f"tpuasr_{name}_loop")(
+                xg_g.data_ptr(), w_h.data_ptr(), mask_g.data_ptr(), hp_g.data_ptr(),
+                ptr(cp_g), ptr(cs_g), dy_g.data_ptr(), hg.data_ptr(), out_g.data_ptr(),
+                dhg.data_ptr(), bar.data_ptr(), layout, t_len, nd, bg, h, code, stream)
+            raise_on(lib, err, f"{name} loop")
+            if ev:
+                ev[2].record()
+                bwd_events.append({"hg": (ev[0], ev[1]), "loop": (ev[1], ev[2])})
+        if out_g is not out:
+            out.narrow(batch_axis, b0, bg).copy_(out_g)
+    return len(groups)
+
+
+FWD_PARTS = ("barrier", "h_load", "product", "gate", "loop")  # the C side's timer columns
+# A list to split the forward's step: each call appends, per row group,
+# {"timer": (n_blocks, 5) int64 tensor of clock64 sums over the steps in
+# FWD_PARTS order (thread 0 of each block), "T": steps}; None: no timer
+# (the main path).
+fwd_parts: list | None = None
+
+
+def run_forward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
+                b_h: torch.Tensor, mask: torch.Tensor, ys: torch.Tensor,
+                cs: torch.Tensor | None = None, batch_axis: int = 2) -> int:
+    """Launch a fused RNN forward (``csrc/rnn_fwd.cuh``: one persistent,
+    cooperative launch for the whole time loop) into ys (and the LSTM's
+    cs), tiled by ``rnn_fwd_plan`` for this card. ``name`` is the library
+    (``bigru_fwd``, ``bigru2_fwd``, ``bilstm_fwd``); inputs are checked by
+    the caller; ``batch_axis`` is xg's batch axis (3 in the gate-major
+    layout). A batch whose state does not fit one block (``max_fwd_rows``,
+    2,864 rows at BiGRU-800 on an H100) runs in row groups, copied as the
+    backward's are. Returns the number of row groups (launches)."""
+    t_len, nd = xg.shape[:2]
+    b, h = ys.shape[2], ys.shape[3]
+    dev = xg.device
+    lib = kernel_library(name)
+    n_sms, smem = _card(name, dev)
+    groups = row_groups(b, max_fwd_rows(nd, h, n_gates, xg.element_size(), n_sms, smem))
+    code = DTYPE_CODE[xg.dtype]
+    outs = (ys,) if cs is None else (ys, cs)
+    for b0, b1 in groups:
+        bg = b1 - b0
+        plan = rnn_fwd_plan(nd, bg, h, n_gates, xg.element_size(), n_sms, smem)
+        xg_g, mask_g = _rows(xg, batch_axis, b0, b1), _rows(mask, 2, b0, b1)
+        outs_g = tuple(_rows(o, 2, b0, b1) for o in outs)
+        bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
+        timer = (None if fwd_parts is None else
+                 torch.zeros((plan.n_blocks, len(FWD_PARTS)), dtype=torch.int64, device=dev))
+        ints = plan.as_ints()
+        layout = (ctypes.c_int * len(ints))(*ints)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, f"tpuasr_{name}")(
+                xg_g.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_g.data_ptr(),
+                *(o.data_ptr() for o in outs_g), bar.data_ptr(),
+                None if timer is None else timer.data_ptr(), layout, t_len, nd, bg, h, code,
+                stream)
+        raise_on(lib, err, name)
+        if timer is not None:
+            fwd_parts.append({"timer": timer, "T": t_len})
+        for o, o_g in zip(outs, outs_g):
+            if o_g is not o:
+                o.narrow(2, b0, bg).copy_(o_g)
+    return len(groups)
 
 
 def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Fused GRU time loop over D directions: (T, D, B, 3H) -> (T, D, B, H).
 
-    CUDA tensors run the Hopper kernel (one launch per time step, each
-    counted in ``bigru_forward.launches``); CPU tensors run
-    ``bigru_reference``. Arguments as for ``bigru_reference``, but on
-    CUDA they must be contiguous, w_h at xg's dtype and b_h/mask f32.
+    CUDA tensors run the Hopper kernel (one launch a call, or one a row
+    group past ``max_fwd_rows``, each counted in
+    ``bigru_forward.launches``); CPU tensors run ``bigru_reference``.
+    Arguments as for ``bigru_reference``, but on CUDA they must be
+    contiguous, w_h at xg's dtype and b_h/mask f32.
     """
     if xg.device.type == "cpu":
         return bigru_reference(xg, w_h, b_h, mask)
@@ -289,14 +380,7 @@ def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     ys = torch.empty((t_len, nd, b, h), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys
-    lib = kernel_library("bigru_fwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bigru_fwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            ys.data_ptr(), t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bigru_fwd")
-    bigru_forward.launches += t_len
+    bigru_forward.launches += run_forward("bigru_fwd", 3, xg, w_h, b_h, mask, ys)
     return ys
 
 
@@ -309,8 +393,9 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     """Reverse-time GRU gate gradients: -> packed (T, D, B, 4H).
 
     CUDA tensors run the Hopper kernel (two launches a call whatever T,
-    the hg GEMM and the persistent loop, each counted in
-    ``bigru_backward.launches``); CPU tensors run
+    the hg GEMM and the persistent loop, two a row group past
+    ``max_bwd_rows``, each counted in ``bigru_backward.launches``); CPU
+    tensors run
     ``bigru_backward_reference``. On CUDA, h_prev and dy must be
     contiguous and in xg's dtype, with the shape of ys.
     """
@@ -324,8 +409,8 @@ def bigru_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     packed = torch.empty((t_len, nd, b, 4 * h), dtype=xg.dtype, device=xg.device)
     if packed.numel() == 0:
         return packed
-    run_backward("bigru_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, packed)
-    bigru_backward.launches += BWD_LAUNCHES
+    groups = run_backward("bigru_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, packed)
+    bigru_backward.launches += BWD_LAUNCHES * groups
     return packed
 
 

@@ -7,7 +7,7 @@ differs: every gate is its own (B, H) plane. xg (T, D, 3, B, H), w_h
 direction 1 time-flipped by the caller.
 
 ``bigru2_forward`` wraps the hand-written Hopper kernel
-``csrc/bigru2_fwd.cu`` (replacing ``tpuasr/ops/gru2.py:_fwd_kernel``);
+``csrc/bigru2_fwd.cu`` (one persistent launch a call, replacing ``tpuasr/ops/gru2.py:_fwd_kernel``);
 ``bigru2_reference`` is its plain PyTorch version. ``bigru2_backward``
 wraps ``csrc/bigru2_bwd.cu`` (replacing ``tpuasr/ops/gru2.py:_bwd_kernel``):
 dg (T, D, 4, B, H) = [dr_pre, dz_pre, dn_pre, dhn] * m in xg's dtype;
@@ -26,12 +26,10 @@ import torch
 
 from tpuasr_torch.ops.gru import (
     BWD_LAUNCHES,
-    DTYPE_CODE,
     check_inputs,
     check_states,
-    kernel_library,
-    raise_on,
     run_backward,
+    run_forward,
     shift_time,
 )
 
@@ -126,8 +124,8 @@ def bigru2_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """Gate-major fused GRU time loop: (T, D, 3, B, H) -> (T, D, B, H).
 
-    CUDA tensors run the Hopper kernel (one launch per time step, each
-    counted in ``bigru2_forward.launches``); CPU tensors run
+    CUDA tensors run the Hopper kernel (one launch a call, or one a row
+    group, each counted in ``bigru2_forward.launches``); CPU tensors run
     ``bigru2_reference``. Arguments as for ``bigru2_reference``, but on
     CUDA they must be contiguous, w_h at xg's dtype and b_h/mask f32.
     """
@@ -140,14 +138,8 @@ def bigru2_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     ys = torch.empty((t_len, nd, b, h), dtype=xg.dtype, device=xg.device)
     if ys.numel() == 0:
         return ys
-    lib = kernel_library("bigru2_fwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bigru2_fwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            ys.data_ptr(), t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bigru2_fwd")
-    bigru2_forward.launches += t_len
+    bigru2_forward.launches += run_forward("bigru2_fwd", 3, xg, w_h, b_h, mask, ys,
+                                           batch_axis=3)
     return ys
 
 
@@ -160,7 +152,8 @@ def bigru2_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     """Reverse-time gate-major GRU gradients: -> dg (T, D, 4, B, H).
 
     CUDA tensors run the Hopper kernel (two launches a call whatever T,
-    each counted in ``bigru2_backward.launches``); CPU tensors run
+    two a row group, each counted in ``bigru2_backward.launches``); CPU
+    tensors run
     ``bigru2_backward_reference``. On CUDA, h_prev and dy must be
     contiguous and in xg's dtype, with the shape of ys.
     """
@@ -174,8 +167,8 @@ def bigru2_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     dg = torch.empty((t_len, nd, 4, b, h), dtype=xg.dtype, device=xg.device)
     if dg.numel() == 0:
         return dg
-    run_backward("bigru2_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, dg)
-    bigru2_backward.launches += BWD_LAUNCHES
+    groups = run_backward("bigru2_bwd", 3, xg, w_h, b_h, mask, h_prev, dy, dg, batch_axis=3)
+    bigru2_backward.launches += BWD_LAUNCHES * groups
     return dg
 
 

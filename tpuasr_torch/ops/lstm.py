@@ -1,8 +1,8 @@
 """Fused bidirectional LSTM time loop (port of ``tpuasr/ops/lstm.py``).
 
 ``bilstm_forward`` is the wrapper of the hand-written Hopper kernel
-``csrc/bilstm_fwd.cu``, which replaces the TPU kernel
-``tpuasr/ops/lstm.py:_fwd_kernel``. ``bilstm_reference`` is its plain
+``csrc/bilstm_fwd.cu`` (one persistent launch a call), which replaces
+the TPU kernel ``tpuasr/ops/lstm.py:_fwd_kernel``. ``bilstm_reference`` is its plain
 PyTorch version with the same numerics: gates [i, f, g, o], the
 recurrent product and ``b_h`` in f32, h carried rounded to xg's dtype
 and c carried in f32, masked frames carrying both through. Both return
@@ -23,19 +23,14 @@ as in ``tpuasr_torch.ops.gru``: xg (T, D, B, 4H), w_h (D, H, 4H), b_h
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from tpuasr_torch.ops import _build
 from tpuasr_torch.ops.gru import (
     BWD_LAUNCHES,
-    DTYPE_CODE,
     check_inputs,
     check_states,
-    raise_on,
     run_backward,
+    run_forward,
     shift_time,
 )
 
@@ -129,27 +124,13 @@ def bilstm_backward_reference(xg: torch.Tensor, w_h: torch.Tensor,
     return out
 
 
-@functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    """``bilstm_fwd``'s library (built on first use) with its C
-    signature; ``bilstm_bwd``'s is ``gru.kernel_library``'s."""
-    lib = _build.load(name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, f"tpuasr_{name}")
-    fn.argtypes = [p] * 7 + [i] * 5 + [p]
-    fn.restype = ctypes.c_int
-    lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def bilstm_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                    mask: torch.Tensor):
     """Fused LSTM time loop over D directions: (T, D, B, 4H) -> (ys, cs),
     each (T, D, B, H).
 
-    CUDA tensors run the Hopper kernel (one launch per time step, each
-    counted in ``bilstm_forward.launches``); CPU tensors run
+    CUDA tensors run the Hopper kernel (one launch a call, or one a row
+    group, each counted in ``bilstm_forward.launches``); CPU tensors run
     ``bilstm_reference``. Arguments as for ``bilstm_reference``, but on
     CUDA they must be contiguous, w_h at xg's dtype and b_h/mask f32.
     """
@@ -163,16 +144,7 @@ def bilstm_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     cs = torch.empty_like(ys)
     if ys.numel() == 0:
         return ys, cs
-    c = torch.empty((nd, b, h), dtype=torch.float32, device=xg.device)  # f32 carry
-    lib = _lib("bilstm_fwd")
-    with torch.cuda.device(xg.device):
-        stream = torch.cuda.current_stream(xg.device).cuda_stream
-        err = lib.tpuasr_bilstm_fwd(
-            xg.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask.data_ptr(),
-            ys.data_ptr(), cs.data_ptr(), c.data_ptr(),
-            t_len, nd, b, h, DTYPE_CODE[xg.dtype], stream)
-    raise_on(lib, err, "bilstm_fwd")
-    bilstm_forward.launches += t_len
+    bilstm_forward.launches += run_forward("bilstm_fwd", 4, xg, w_h, b_h, mask, ys, cs=cs)
     return ys, cs
 
 
@@ -186,7 +158,7 @@ def bilstm_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     """Reverse-time LSTM gate gradients: -> dhg (T, D, B, 4H).
 
     CUDA tensors run the Hopper kernel (two launches a call whatever T,
-    the hg GEMM and the persistent loop, each counted in
+    the hg GEMM and the persistent loop, two a row group, each counted in
     ``bilstm_backward.launches``); CPU tensors run
     ``bilstm_backward_reference``. On CUDA, h_prev, c_prev, cs and dy
     must be contiguous and in xg's dtype, with the shape of ys.
@@ -201,9 +173,9 @@ def bilstm_backward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     dhg = torch.empty_like(xg)
     if dhg.numel() == 0:
         return dhg
-    run_backward("bilstm_bwd", 4, xg, w_h, b_h, mask, h_prev, dy, dhg, c_prev=c_prev,
-                 cs=cs)
-    bilstm_backward.launches += BWD_LAUNCHES
+    groups = run_backward("bilstm_bwd", 4, xg, w_h, b_h, mask, h_prev, dy, dhg,
+                          c_prev=c_prev, cs=cs)
+    bilstm_backward.launches += BWD_LAUNCHES * groups
     return dhg
 
 
