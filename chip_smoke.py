@@ -7,6 +7,9 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]`` only times the
+device-beam path from a work directory a full run left: time_beam_path.)
+
 Phases, one JSON line each; any failure raises and the run exits
 non-zero without printing a result:
 
@@ -63,7 +66,14 @@ non-zero without printing a result:
                sentences and on the trained checkpoint's logits, and at
                T'=251 with W=100 (no LM, char, word) and a char 7-gram;
                4 chunked stateful calls against one call; then its times
-               and the plain version's beside the bound.
+               and the plain version's beside the bound. Then its frame
+               split (beam_split: clock64 spans of each phase and the
+               barriers a frame, B=32, T'=251, W=10 and 100, three LM
+               modes) and K3 past every limit it once had (beam_limits:
+               W=300 over 130 classes, W=254 over 126 with its pool in
+               the global workspace, a char 12-gram over 70 classes, also
+               in 3 stateful chunks, a word 9-gram; B=8, T'=48) against
+               its plain version.
   6. decode  — the evaluation main path: tpuasr_torch.cli.train_lm builds
                a word and a char trigram ARPA from the training
                transcripts; tpuasr_torch.cli.test --decoder beam-device
@@ -149,7 +159,9 @@ hold their train step and service batch to the flagship's bounds.
 K3 vs plain: parents and chars equal, scores within 1e-5 relative, best
 texts equal; both run the same f32 operations in the same order with
 the card's expf/log1pf (an absorbed sum has at most one term, since the
-beam's prefixes are distinct), so only last bits may differ.
+beam's prefixes are distinct), so only last bits may differ. K3 finds a
+stay's matching extend through its parent's hash where the plain
+version compares hashes: the two differ only on a 64-bit collision.
 """
 
 from __future__ import annotations
@@ -1385,7 +1397,8 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
                   **dec.kernel_lm_kwargs(lp.shape[2], cuda))
         full = beam_scan(lp, lens, return_state=True, **kw)
         lm_mode = mode.split("-")[0].rstrip("7")  # "char7": the char LM
-        ring = max(1, dec._word_tables.order - 1) if lm_mode == "word" else 0
+        tabs = kw.get("word_tables", kw.get("char_tables"))
+        ring = 0 if tabs is None else max(1, tabs.order - 1)
         state = make_beam_state(32, BEAM_W, lm_mode=lm_mode, ring_len=ring, device=cuda)
         step = -(-lp.shape[1] // 4)
         ps, cs = [], []
@@ -1422,6 +1435,162 @@ def phase_kernel_beam(out, paths, smi: str, device: str = "cuda", vocab_size: in
             emit("kernel_time", kernel="beam", **row)
             timings.append(row)
     return worst, timings
+
+
+def k3_split(run):
+    """K3's frame split: ``run()`` once with its frame timer on
+    (``tpuasr_torch.ops.beam.k3_parts``), reduced over every block: each
+    phase's share of the loop's clock64 cycles (thread 0, phases ending
+    at their barriers), cycles and barriers a frame. None when nothing
+    launched (a CPU rehearsal)."""
+    import torch
+
+    import tpuasr_torch.ops.beam as beam_mod
+
+    beam_mod.k3_parts = []
+    try:
+        run()
+        torch.cuda.synchronize()
+        parts = beam_mod.k3_parts
+    finally:
+        beam_mod.k3_parts = None
+    if not parts:
+        return None
+    names = beam_mod.K3_PARTS
+    sums = dict(zip(names, torch.stack([c["timer"].sum(0) for c in parts]).sum(0).tolist()))
+    frames = max(sums["frames"], 1)
+    return {"share": {k: sums[k] / max(sums["loop"], 1) for k in names[:names.index("loop")]},
+            "cycles_per_frame": sums["loop"] / frames,
+            "barriers_per_frame": sums["barriers"] / frames}
+
+
+def beam_split(texts, smi: str, device: str = "cuda") -> list:
+    """K3's frame split at B=32, T'=251 (peaked logits of the corpus
+    sentences), W=10 and W=100, with no LM, the char trigram and the word
+    trigram of the corpus texts (alpha 0.8, beta 1.0): each phase in µs a
+    frame, the untimed kernel's time per frame of its longest row scaled by
+    the phase's share of the timed loop, and the barriers a frame."""
+    import torch
+
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.lm import train_ngram
+    from tpuasr_torch.labels import Alphabet
+    from tpuasr_torch.ops.beam import beam_scan
+
+    cuda = torch.device(device)
+    alphabet = Alphabet()
+    char_lines = [" ".join("<sp>" if ch == " " else ch for ch in t) for t in texts]
+    lms = {"none": {}, "char": {"char_lm": train_ngram(char_lines, order=3)},
+           "word": {"word_lm": train_ngram(texts, order=3)}}
+    logits, lengths = sentence_logits(alphabet, texts, 32, 251, seed=251)
+    rows = []
+    for w in (BEAM_W, 100):
+        for mode, lm in lms.items():
+            dec = DeviceBeamDecoder(alphabet, beam_width=w, cutoff_top_n=BEAM_TOP_N,
+                                    **({"alpha": 0.8, "beta": 1.0, **lm} if lm else {}))
+            lp, lens = dec.logprobs(torch.from_numpy(logits).to(cuda), lengths)
+            kw = dict(beam_width=w, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+                      **dec.kernel_lm_kwargs(lp.shape[2], cuda))
+            ms = time_ms(lambda: beam_scan(lp, lens, **kw), iters=5, warmup=1)
+            split = k3_split(lambda: beam_scan(lp, lens, **kw))
+            row = {"mode": mode, "beam_width": w, "shape": list(lp.shape), "ms": ms,
+                   "us_per_frame": ms * 1e3 / int(lengths.max()), "nvidia_smi": smi}
+            if split is not None:
+                row.update(split, us_per_frame_by_phase={
+                    k: v * row["us_per_frame"] for k, v in split["share"].items()})
+            emit("beam_split", **row)
+            rows.append(row)
+    return rows
+
+
+def limit_alphabet(c: int):
+    """An alphabet of c classes: blank, c - 2 letters (Latin Extended code
+    points), space."""
+    from tpuasr_torch.labels import Alphabet
+
+    return Alphabet(labels="_" + "".join(chr(0x100 + i) for i in range(c - 2)) + " ")
+
+
+def limit_lines(alphabet, kind: str, seed: int = 5) -> list:
+    """Seeded LM training lines over the alphabet's letters: words of 1-3
+    letters, 5 to a line; a char LM's letter by letter."""
+    rng = np.random.RandomState(seed)
+    letters = list(alphabet.labels[1:-1])
+    words = ["".join(rng.choice(letters, size=rng.randint(1, 4))) for _ in range(60)]
+    lines = [" ".join(rng.choice(words, size=5)) for _ in range(80)]
+    if kind == "char":
+        lines = [" ".join("<sp>" if ch == " " else ch for ch in ln) for ln in lines]
+    return lines
+
+
+def phase_beam_limits(smi: str, device: str = "cuda", b: int = 8, t: int = 48) -> list:
+    """K3 past every limit it once had, against its plain version on the
+    card: W=300 over 130 classes, W=254 over 126 classes (its pool in the
+    global workspace: the placement is printed), a char 12-gram over 70
+    classes (also in 3 stateful chunks against one call) and a word
+    9-gram, at B=8, T'=48 on seeded logits with ragged lengths: parents
+    and chars equal, scores within 1e-5 relative. ``device`` "cpu" and
+    smaller ``b``/``t`` only rehearse it."""
+    import torch
+
+    from tpuasr_torch.decode.beam import pack_lm_tables, pack_word_lm_tables
+    from tpuasr_torch.decode.lm import train_ngram
+    from tpuasr_torch.ops.beam import (_k3_plan, _lm_mode, beam_scan, beam_scan_reference,
+                                       flat_tables, make_beam_state)
+
+    dev = torch.device(device)
+    cases = {"W300-C130": (300, 130, None, 0), "W254-C126": (254, 126, None, 0),
+             "char12-C70": (10, 70, "char", 12), "word9": (10, 42, "word", 9)}
+    rows = []
+    for name, (w, c, kind, order) in cases.items():
+        alphabet = limit_alphabet(c)
+        kw = dict(beam_width=w, blank_id=0, cutoff_top_n=BEAM_TOP_N)
+        if kind is not None:
+            lm = train_ngram(limit_lines(alphabet, kind), order=order)
+            pack = pack_lm_tables if kind == "char" else pack_word_lm_tables
+            kw.update({f"{kind}_tables": flat_tables(pack(lm, alphabet), dev), "alpha": 0.8,
+                       "beta": 1.0, "space_id": alphabet.space_id})
+        rng = np.random.RandomState(c + w)
+        logits = (rng.randn(b, t, c) * 2.5).astype(np.float32)
+        lens_np = rng.randint(1, t + 1, size=b).astype(np.int32)
+        lens_np[0], lens_np[min(2, b - 1)] = t, 0
+        lp = torch.log_softmax(torch.from_numpy(logits), -1).to(dev).contiguous()
+        lens = torch.from_numpy(lens_np).to(dev)
+        got = beam_scan(lp, lens, return_state=True, **kw)
+        torch.cuda.synchronize()
+        want = beam_scan_reference(lp, lens, return_state=True, **kw)
+        lm_mode, ring = _lm_mode(kw.get("char_tables"), kw.get("word_tables"), kw.get("space_id"))
+        err = ((got[2] - want[2]).abs() / want[2].abs().clamp(min=1.0)).max().item()
+        row = {"case": name, "shape": [b, t, c], "beam_width": w, "lm": kind, "order": order,
+               "dtype": str(got[0].dtype).replace("torch.", ""),
+               "place": (_k3_plan(w, c, ring if lm_mode == "word" else 0,
+                                  ring if lm_mode == "char" else 0, order, lm_mode, 0, dev)[0]
+                         if dev.type == "cuda" else None),
+               "parents_equal": bool(torch.equal(got[0], want[0])),
+               "chars_equal": bool(torch.equal(got[1], want[1])),
+               "state_equal": all(torch.equal(x, y) for x, y in zip(got[3], want[3])),
+               "score_rel_err": err, "score_abs_err": (got[2] - want[2]).abs().max().item()}
+        if kind == "char":  # 3 stateful chunks against one call
+            state = make_beam_state(b, w, lm_mode="char", ring_len=ring, device=dev)
+            step = -(-t // 3)
+            ps = []
+            for t0 in range(0, t, step):
+                n = torch.clamp(lens - t0, 0, step).to(torch.int32)
+                p, _, scores, state = beam_scan(lp[:, t0:t0 + step].contiguous(), n, state=state,
+                                                return_state=True, **kw)
+                ps.append(p)
+            torch.cuda.synchronize()
+            row["stateful_chunks_equal"] = (
+                torch.equal(torch.cat(ps, 1), got[0]) and torch.equal(scores, got[2])
+                and all(torch.equal(x, y) for x, y in zip(state, got[3])))
+            check(row["stateful_chunks_equal"], f"K3 chunks != one call: {row}")
+        row["ms"] = time_ms(lambda: beam_scan(lp, lens, **kw), iters=3, warmup=1)
+        row["nvidia_smi"] = smi
+        emit("beam_limits", **row)
+        check(row["parents_equal"] and row["chars_equal"] and row["state_equal"] and err <= 1e-5,
+              f"K3 past its old limits vs plain: {row}")
+        rows.append(row)
+    return rows
 
 
 def parse_summary(lines: list) -> dict:
@@ -1607,6 +1776,61 @@ def decode_breakdown(out, paths, lm_path: str, smi: str, device: str = "cuda") -
            "utt_per_s": 32 / (totals["batch_ms"] / 1e3), "nvidia_smi": smi}
     emit("decode_breakdown", **row)
     return row
+
+
+def time_beam_path(work: Path, label: str, smi: str) -> None:
+    """The device-beam path's times, for a same-call comparison of two
+    checkouts: K3 on the trained flagship's logits (W=10 with no LM, the
+    corpus' char and word trigrams, the 50k-word trigram and a char
+    7-gram; W=100 with the first three; T'=251 and 826; CUDA-event means
+    of 10 calls, 3 at W=100), three 32-row decode batches
+    (``decode_breakdown``) and five ``cli.test --decoder beam-device``
+    runs a LM mode, all from a work directory a full run left
+    (``build/chip_smoke``: corpus, train/best.ckpt, lm_word.arpa,
+    lm_char.arpa). One JSON line each, tagged ``label``. Run as
+    ``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]``, ROOT being
+    the checkout whose tpuasr_torch is timed (this one by default), in
+    turns: parent, change, change, parent."""
+    import torch
+
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.labels import Alphabet
+    from tpuasr_torch.ops.beam import beam_scan
+
+    paths = {k: str(work / "corpus" / f"{k}.csv") for k in ("train", "val", "all")}
+    out = work / "train"
+    alphabet = Alphabet()
+    texts = corpus_texts(paths)
+    decs = {**beam_decoders(alphabet, texts), **wide_beam_decoders(alphabet, texts)}
+    inputs = {t: flagship_logits(out, paths, s) for t, s in ((251, 5.0), (826, 16.5))}
+    for mode, dec in decs.items():
+        for t, (logits, lengths) in inputs.items():
+            lp, lens = dec.logprobs(torch.from_numpy(logits).cuda(), lengths)
+            w = dec.cfg.beam_width
+            kw = dict(beam_width=w, blank_id=alphabet.blank_id, cutoff_top_n=BEAM_TOP_N,
+                      **dec.kernel_lm_kwargs(lp.shape[2], "cuda"))
+            ms = time_ms(lambda: beam_scan(lp, lens, **kw), iters=10 if w <= BEAM_W else 3,
+                         warmup=2)
+            emit("time_beam", label=label, mode=mode, T=t, W=w, ms=ms, nvidia_smi=smi)
+    for rep in range(3):
+        with contextlib.redirect_stdout(io.StringIO()):
+            row = decode_breakdown(out, paths, str(work / "lm_word.arpa"), smi)
+        emit("time_beam", label=label, rep=rep, decode_breakdown={
+            k: row[k] for k in ("k3_ms", "batch_ms", "eval_step_ms", "d2h_copy_ms",
+                                "backtrack_readout_ms", "device_ms")})
+    runs = {"word": ["--lm-path", str(work / "lm_word.arpa")],
+            "char": ["--lm-path", str(work / "lm_char.arpa"), "--device-lm-level", "char"],
+            "none": []}
+    for name, extra in runs.items():
+        ups = []
+        for _ in range(5):
+            rc, lines = run_cli(test_cli.main, [
+                "--model-path", str(out / "best.ckpt"), "--test-manifest", paths["val"],
+                "--decoder", "beam-device", "--beam-width", str(BEAM_W), "--batch-size", "32",
+                "--timing", "--timing-repeats", "2", "--device", "cuda", *extra])
+            check(rc == 0, f"cli.test {name}: {lines}")
+            ups.append(parse_summary(lines)["utt_per_s"])
+        emit("time_beam", label=label, cli_test=name, utt_per_s=ups, nvidia_smi=smi)
 
 
 # ------------------------------------------------------------------- serve
@@ -1860,6 +2084,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time-beam"]:  # WORK LABEL [ROOT]
+        sys.path.insert(0, sys.argv[4] if len(sys.argv) > 4 else str(ROOT))
+        time_beam_path(Path(sys.argv[2]), sys.argv[3], nvidia_smi_line())
+        return 0
     sys.path.insert(0, str(ROOT))
 
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -1880,6 +2108,8 @@ def main() -> int:
     train_step_parity(out, paths)
     train_breakdown(out, paths, smi)
     beam_err, beam_timings = phase_kernel_beam(out, paths, smi)
+    beam_split(corpus_texts(paths), smi)
+    limit_rows = phase_beam_limits(smi)
     decode_res, lm_word = phase_decode(out, paths, smi)
     decode_breakdown(out, paths, lm_word, smi)
     serve_launches = phase_serve(smi, name)
@@ -1922,7 +2152,7 @@ def main() -> int:
                      dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], card=smi),
         kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
                      next(r for r in beam_timings if r["mode"] == "word"), beam_launches,
-                     timings=beam_timings, card=smi),
+                     timings=beam_timings, limits=limit_rows, card=smi),
         kernel_entry("bilstm_fwd", "tpuasr/ops/lstm.py:62 _fwd_kernel", k4_err["bilstm_fwd"],
                      k4_timings["bilstm_fwd"][0],
                      by_path("bilstm_forward", serve_lstm=lstm_serve),

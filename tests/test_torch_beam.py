@@ -199,7 +199,7 @@ def test_stateful_chunks_equal_one_call(mode):
     kw = {"none": {}, "char": _lm_case("char3")[0], "word": _lm_case("word3")[0]}[mode]
     kw.update(beam_width=w, blank_id=0)
     p0, c0, s0, st0 = ops.beam_scan_reference(lp, lengths, return_state=True, **kw)
-    ring = 2 if mode == "word" else 0
+    ring = 0 if mode == "none" else 2  # trigrams: a 2-token ring or 2-char context
     state = ops.make_beam_state(b, w, lm_mode=mode, ring_len=ring)
     ps, cs = [], []
     for t0 in range(0, t, 6):  # 4 chunks
@@ -243,23 +243,40 @@ def test_wrapper_routes_and_refuses():
         ops.beam_scan(lp.to("meta"), lengths.to("meta"), beam_width=3, blank_id=0)
     with pytest.raises(ValueError, match="beam_width"):
         ops.beam_scan_reference(lp, lengths, beam_width=0, blank_id=0)
-    # K3's limits: the output packing's W <= 254 and C <= 126, char-LM
-    # orders <= 11 (64 bits of context) over <= 64 classes, word orders <= 8
-    assert ops.k3_refusal(254, 126) is None and ops.k3_refusal(10, 5, "char", 11) is None
-    assert ops.k3_refusal(255, 5) == "beam width 255 > 254"
-    assert ops.k3_refusal(10, 127) == "127 classes > 126"
-    assert ops.k3_refusal(10, 5, "char", 12) == "char-LM order 12 > 11"
-    assert "65 classes > 64" in ops.k3_refusal(10, 65, "char", 3)
-    assert ops.k3_refusal(10, 5, "word", 9, 8) == "word-LM order 9 > 8"
-    # the plain version, the CPU's, takes what K3 does not (on a card,
-    # beam_scan raises with the reason before any launch)
+    # K3 has no limits left: no refusal, and the state it reads holds a
+    # char context of any order as class ids (one int32 row each) and a
+    # word ring of any length
+    assert not hasattr(ops, "k3_refusal")
+    assert ops._out_dtype(127, 126) == torch.int8 and ops._out_dtype(254, 126) == torch.int32
+    assert ops._out_dtype(255, 5) == torch.int32 and ops._out_dtype(10, 127) == torch.int32
+    st = ops.make_beam_state(2, 3, lm_mode="char", ring_len=11)  # a 12-gram's context
+    assert len(st) == 6 + 11 and all(f.dtype == torch.int32 for f in st[6:])
+    assert ops._stack_state(st).shape == (17, 2, 3)
+    # a stateful char trigram over 65 classes: its context holds ids past 63
+    abc65 = Alphabet(labels="_" + "".join(chr(0x100 + i) for i in range(63)) + " ")
+    tri = train_ngram([" ".join(chr(0x100 + (7 * k + i) % 63) for i in range(9))
+                       for k in range(20)], order=3)
+    kw65 = tbeam.DeviceBeamDecoder(abc65, char_lm=tri, alpha=0.5).kernel_lm_kwargs(65)
+    peaked = torch.full((2, 5, 65), -30.0)
+    peaked[:, :, 62] = 0.0  # class 62, then 63 and 64 (the space) stand out
+    peaked[:, 2:, 63] = 1.0
+    peaked[:, 4, 64] = 2.0
+    out = ops.beam_scan_reference(torch.log_softmax(peaked, -1), lengths, beam_width=3,
+                                  blank_id=0, state=ops.make_beam_state(2, 3, lm_mode="char",
+                                                                        ring_len=2),
+                                  return_state=True, **kw65)
+    assert len(out[3]) == 6 + 2 and int(out[3][-1][0].max()) == 64
+    st = ops.make_beam_state(2, 3, lm_mode="word", ring_len=8)  # a 9-gram's ring
+    assert len(st) == 6 + 3 + 16 and ops._stack_state(st).shape == (25, 2, 3)
+    # the plain version, the CPU's, takes what K3 takes (on a card, beam_scan
+    # launches K3 for it)
     wide = ops.beam_scan_reference(lp, lengths, beam_width=300, blank_id=0)
     assert wide[0].shape == (2, 5, 300) and wide[0].dtype == torch.int32
     lm = train_ngram(CHARS, order=12)
     dec = tbeam.DeviceBeamDecoder(ABC, beam_width=300, char_lm=lm, alpha=0.5)
     kw = dec.kernel_lm_kwargs(5)
-    assert ops.k3_refusal(300, 5, "char", kw["char_tables"].order) == "beam width 300 > 254"
-    assert ops.k3_refusal(10, 5, "char", kw["char_tables"].order) == "char-LM order 12 > 11"
+    assert kw["char_tables"].order == 12 and kw["char_tables"].meta_rows.shape == (12, 3)
+    assert kw["char_tables"].meta_rows.dtype == torch.int32
     want = ops.beam_scan_reference(lp, lengths, beam_width=300, blank_id=0, **kw)
     assert all(torch.equal(a, b) for a, b in zip(dec.search(lp, lengths), want))
     assert ops.beam_scan.launches == before

@@ -1,21 +1,21 @@
-"""The port's device beam at the configurations its kernel K3 used to
-refuse, against tpuasr's on the CPU.
+"""The port's device beam at configurations its kernel K3 once refused,
+against tpuasr's on the CPU.
 
 tpuasr's ``DeviceBeamDecoder(impl="auto")`` decodes any beam width and
 any LM order: what its TPU kernel cannot fuse goes to its XLA path
 (``make_beam_search``), which on the CPU is where "auto" goes anyway.
 The port's decoder runs ``beam_scan_reference`` (K3's plain version) on
-the CPU; on a card it runs K3 up to W=254 and char-LM orders up to 11,
-and raises past K3's limits. Here both packages decode the
+the CPU; on a card it runs K3, which takes any width and order. Here
+both packages decode the
 same seeded logits at W=100 (no LM, a char and a word trigram) and with
 a 7-gram char LM (W=10 and W=100): the texts of every live beam are
 equal and their scores within 1e-5, the tolerance of
 tests/test_torch_beam.py (the exp/log1p of the two frameworks may differ
 in the last bit).
 
-A 7-gram char context is 6 classes of 6 bits, 36 bits: the stateful
-plain version packs it as K3 does, in 64 bits, and chunked calls equal
-one call.
+A 7-gram char context is the class ids of a beam's last 6 chars: the
+stateful plain version carries them as K3 does, one int32 state row
+each, and chunked calls equal one call.
 """
 
 import jax.numpy as jnp
@@ -78,13 +78,14 @@ def test_wide_and_high_order_beams_match_tpuasr(name):
     assert n_live > 3 * min(w, 20) // 2  # the width is really used
     texts = port.decode(logits, lengths)
     assert texts == ref.decode(jnp.asarray(logits), jnp.asarray(lengths))
-    if kind == "char" and order > 6:
-        assert ops.k3_refusal(w, 5, "char", order) is None  # K3 fuses it (order <= 11)
+    if kind == "char" and order > 6:  # K3 reads every order's table row
+        assert port.kernel_lm_kwargs(5)["char_tables"].meta_rows.shape == (order, 3)
 
 
 def test_seven_gram_context_rides_in_64_bits_across_chunks():
-    """The stateful plain version carries a 7-gram char context (36 bits)
-    packed as K3 carries it; 3 chunked calls equal one call."""
+    """The stateful plain version carries a 7-gram char context as K3
+    carries it, 6 class ids a beam in 6 int32 rows; 3 chunked calls equal
+    one call."""
     lm = train_ngram(CHARS, order=7)
     tables = ops.flat_tables(tbeam.pack_lm_tables(lm, ABC), "cpu")
     b, t, w = 3, 18, 6
@@ -93,9 +94,10 @@ def test_seven_gram_context_rides_in_64_bits_across_chunks():
     lengths = torch.tensor([18, 11, 0], dtype=torch.int32)
     kw = dict(beam_width=w, blank_id=0, char_tables=tables, alpha=0.9, beta=0.4, space_id=3)
     p0, c0, s0, st0 = ops.beam_scan_reference(lp, lengths, return_state=True, **kw)
-    ctx = st0[6]
-    assert ctx.dtype == torch.int64 and int(ctx.max()) >= 1 << 32  # past an int32
-    state = ops.make_beam_state(b, w, lm_mode="char")
+    ctx = torch.stack(st0[6:], -1)  # (B, W, 6) class ids, oldest first
+    assert len(st0) == 6 + 6 and ctx.dtype == torch.int32
+    assert int(ctx.min()) >= 0 and int(ctx.max()) < 5 and int(ctx.max()) > 0
+    state = ops.make_beam_state(b, w, lm_mode="char", ring_len=6)
     ps, cs = [], []
     for t0 in range(0, t, 6):
         n = torch.clamp(lengths - t0, 0, 6).to(torch.int32)
@@ -107,8 +109,11 @@ def test_seven_gram_context_rides_in_64_bits_across_chunks():
     assert torch.equal(scores, s0)
     for a, e in zip(state, st0):
         assert a.dtype == e.dtype and torch.equal(a, e)
-    # K3's state rows: the context as its low and high 32 bits, and back
+    # K3's state rows: one int32 row a context char, and back
     rows = ops._stack_state(st0)
-    assert rows.shape == (len(st0) + 1, b, w)
-    back = ops._unstack_state(rows, ops._state_dtypes("char", 0))
-    assert all(torch.equal(a, e) for a, e in zip(back, st0))
+    assert rows.shape == (len(st0), b, w) and torch.equal(rows[6:], ctx.permute(2, 0, 1))
+    back = ops._unstack_state(rows, ops._state_dtypes("char", 6))
+    assert len(back) == len(st0)
+    assert all(a.dtype == e.dtype and torch.equal(a, e) for a, e in zip(back, st0))
+    with pytest.raises(ValueError):  # a wrong ring length drops no field silently
+        ops._unstack_state(rows, ops._state_dtypes("char", 0))

@@ -643,23 +643,41 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
         ctc_beta(emit, skip, fv, init, emit, init[:, 0].cpu())
 
 
-def _beam_lm(mode, alphabet, device, order=3):
-    """K3's LM kwargs for a mode, from a seeded n-gram (a trigram unless
-    ``order`` says otherwise) over the alphabet's letters."""
-    if mode == "none":
-        return {}
+def _beam_lines(mode, alphabet):
+    """Seeded LM training lines over the alphabet's letters: words of 1-3
+    letters, 5 to a line; a char LM's letter by letter."""
     rng = np.random.RandomState(5)
     letters = list(alphabet.labels[1:-1])
     words = ["".join(rng.choice(letters, size=rng.randint(1, 4))) for _ in range(30)]
     lines = [" ".join(rng.choice(words, size=5)) for _ in range(40)]
     if mode == "char":
         lines = [" ".join("<sp>" if ch == " " else ch for ch in ln) for ln in lines]
+    return lines
+
+
+def _beam_lm(mode, alphabet, device, order=3):
+    """K3's LM kwargs for a mode, from a seeded n-gram (a trigram unless
+    ``order`` says otherwise) over the alphabet's letters."""
+    if mode == "none":
+        return {}
+    lines = _beam_lines(mode, alphabet)
+    if mode == "char":
         tables, key = pack_lm_tables(train_ngram(lines, order=order), alphabet), "char_tables"
     else:
         tables, key = (pack_word_lm_tables(train_ngram(lines, order=order), alphabet),
                        "word_tables")
     return {key: flat_tables(tables, device), "alpha": 0.8, "beta": 0.6,
             "space_id": alphabet.space_id}
+
+
+def _beam_alphabet(c):
+    """An alphabet of c classes: blank, c - 2 letters, space."""
+    if c == 5:
+        return Alphabet(labels="_AB C")
+    letters = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789ÀÁÂÃÇÉÊÍ"
+    if c - 2 > len(letters):
+        letters = "".join(chr(0x100 + i) for i in range(c - 2))
+    return Alphabet(labels="_" + letters[:c - 2] + " ")
 
 
 def _beam_inputs(device, b, t, c, seed=0):
@@ -688,6 +706,7 @@ BEAM_SHAPES = [  # (B, T, C, W)
     pytest.param(32, 60, 44, 10, id="flagship-width"),
     pytest.param(8, 40, 44, 100, id="W100"),  # int8 backpointers, 4,500-candidate pool
     pytest.param(3, 12, 44, 200, id="W200"),  # int32 backpointers
+    pytest.param(3, 8, 130, 300, id="W300-C130"),  # past the old limits; the pool in L2
 ]
 
 
@@ -695,9 +714,7 @@ BEAM_SHAPES = [  # (B, T, C, W)
 @pytest.mark.parametrize("mode", ["none", "char", "word"])
 @pytest.mark.parametrize("b,t,c,w", BEAM_SHAPES)
 def test_beam_kernel_matches_reference(mode, b, t, c, w, cuda):  # noqa: F811
-    labels = ("_AB C" if c == 5 else
-              ("_" + "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789ÀÁÂÃÇÉÊÍ")[:c - 1] + " ")
-    alphabet = Alphabet(labels=labels)
+    alphabet = _beam_alphabet(c)
     lp, lengths = _beam_inputs(cuda, b, t, c, seed=b + t)
     kw = dict(beam_width=w, blank_id=0, cutoff_top_n=40, **_beam_lm(mode, alphabet, cuda))
     before = beam_scan.launches
@@ -717,7 +734,7 @@ def test_beam_kernel_stateful_chunks(mode, cuda):  # noqa: F811
     lp, lengths = _beam_inputs(cuda, b, t, c, seed=9)
     kw = dict(beam_width=w, blank_id=0, **_beam_lm(mode, alphabet, cuda))
     full = beam_scan(lp, lengths, return_state=True, **kw)
-    ring = 2 if mode == "word" else 0
+    ring = 0 if mode == "none" else 2  # trigrams: a 2-token ring or 2-char context
     state = make_beam_state(b, w, lm_mode=mode, ring_len=ring, device=cuda)
     state_ref = state
     ps, cs = [], []
@@ -741,8 +758,8 @@ def test_beam_kernel_stateful_chunks(mode, cuda):  # noqa: F811
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [10, 100])
 def test_beam_kernel_fuses_a_seven_gram_char_lm(w, cuda):  # noqa: F811
-    """Char-LM orders up to 11 ride in K3 with a 64-bit context; a 7-gram
-    (36 bits) against the plain version, stateless and in 3 chunks."""
+    """A char 7-gram's context rides in K3 as 6 class ids a beam; against
+    the plain version, stateless and in 3 chunks."""
     alphabet = Alphabet(labels=("_" + "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789ÀÁÂÃÇÉÊÍ")[:43] + " ")
     lp, lengths = _beam_inputs(cuda, 6, 36, 44, seed=w)
     kw = dict(beam_width=w, blank_id=0, **_beam_lm("char", alphabet, cuda, order=7))
@@ -753,7 +770,7 @@ def test_beam_kernel_fuses_a_seven_gram_char_lm(w, cuda):  # noqa: F811
     want = beam_scan_reference(lp, lengths, return_state=True, **kw)
     _assert_beam_equal(got[:3], want[:3])
     assert all(torch.equal(a, e) for a, e in zip(got[3], want[3]))
-    state = make_beam_state(6, w, lm_mode="char", device=cuda)
+    state = make_beam_state(6, w, lm_mode="char", ring_len=6, device=cuda)
     ps = []
     for t0 in range(0, 36, 12):
         n = torch.clamp(lengths - t0, 0, 12).to(torch.int32)
@@ -765,25 +782,97 @@ def test_beam_kernel_fuses_a_seven_gram_char_lm(w, cuda):  # noqa: F811
 
 @pytest.mark.cuda
 def test_beam_decoder_raises_past_k3(cuda):  # noqa: F811
-    """W=254 over 126 classes needs more shared memory than a block has:
-    the decoder raises on the card before any launch, naming the reason,
-    and does not decode with the plain version there."""
+    """What K3 once refused (the name is from then) it now decodes: the
+    decoder on the card at W=254 over 126 classes, whose pool does not
+    fit shared memory, and with a char 12-gram over 70 classes, one K3
+    launch each, equal to the plain version."""
     from tpuasr_torch.decode.beam import DeviceBeamDecoder
-    from tpuasr_torch.ops.beam import k3_refusal
+    from tpuasr_torch.ops.beam import _k3_plan
 
-    alphabet = Alphabet(labels="_" + "".join(chr(0x100 + i) for i in range(124)) + " ")
-    assert alphabet.size == 126
-    reason = k3_refusal(254, 126, device=cuda)
-    assert reason is not None and "shared memory" in reason
-    lp, lengths = _beam_inputs(cuda, 2, 5, 126, seed=3)
-    before = beam_scan.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        DeviceBeamDecoder(alphabet, beam_width=254).decode(lp, lengths)
-    with pytest.raises(ValueError, match="char-LM order 12 > 11"):
-        lines = [" ".join(s) for s in ["ABACAB", "CABBA", "BACBACABA", "AB CAB"]]
-        DeviceBeamDecoder(Alphabet(labels="_AB C"), char_lm=train_ngram(lines, order=12),
-                          alpha=0.5).decode(lp[:, :, :5], lengths)
-    assert beam_scan.launches == before
+    assert _k3_plan(254, 126, 0, 0, 0, "none", 0, cuda)[0] == 1  # the pool in the workspace
+    alphabet = _beam_alphabet(70)
+    twelve = train_ngram(_beam_lines("char", alphabet), order=12)
+    cases = [(DeviceBeamDecoder(_beam_alphabet(126), beam_width=254), 126),
+             (DeviceBeamDecoder(alphabet, beam_width=10, char_lm=twelve, alpha=0.8, beta=0.6), 70)]
+    for dec, c in cases:
+        lp, lengths = _beam_inputs(cuda, 3, 9, c, seed=c)
+        before = beam_scan.launches
+        got = dec.search(lp, lengths)
+        torch.cuda.synchronize()
+        assert beam_scan.launches == before + 1
+        kw = dict(beam_width=dec.cfg.beam_width, blank_id=0, cutoff_top_n=40,
+                  **dec.kernel_lm_kwargs(c, cuda))
+        _assert_beam_equal(got, beam_scan_reference(lp, lengths, **kw))
+        assert dec.decode(lp, lengths) == dec.decode(lp.cpu(), lengths.cpu())
+
+
+@pytest.mark.cuda
+def test_beam_kernel_fuses_a_word_nine_gram(cuda):  # noqa: F811
+    """A word 9-gram (an 8-token ring) in K3 against the plain version,
+    stateless and in 2 stateful chunks."""
+    alphabet = _beam_alphabet(5)
+    kw = dict(beam_width=8, blank_id=0, **_beam_lm("word", alphabet, cuda, order=9))
+    lp, lengths = _beam_inputs(cuda, 4, 24, 5, seed=9)
+    got = beam_scan(lp, lengths, return_state=True, **kw)
+    want = beam_scan_reference(lp, lengths, return_state=True, **kw)
+    _assert_beam_equal(got[:3], want[:3])
+    assert all(torch.equal(a, e) for a, e in zip(got[3], want[3]))
+    state = make_beam_state(4, 8, lm_mode="word", ring_len=8, device=cuda)
+    ps = []
+    for t0 in range(0, 24, 12):
+        n = torch.clamp(lengths - t0, 0, 12).to(torch.int32)
+        p, _, scores, state = beam_scan(lp[:, t0:t0 + 12].contiguous(), n, state=state,
+                                        return_state=True, **kw)
+        ps.append(p)
+    assert torch.equal(torch.cat(ps, 1), got[0]) and torch.equal(scores, got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "char", "word"])
+def test_beam_kernel_pool_placements_are_bit_equal(mode, cuda):  # noqa: F811
+    """A shape whose arrays fit shared memory, run with the W x C pool
+    forced into the global workspace and with the beam state there too:
+    all three placements give the same bits, state included."""
+    from tpuasr_torch.ops.beam import _k3_plan
+
+    alphabet = _beam_alphabet(44)
+    lp, lengths = _beam_inputs(cuda, 5, 30, 44, seed=4)
+    kw = dict(beam_width=12, blank_id=0, return_state=True, **_beam_lm(mode, alphabet, cuda))
+    assert _k3_plan(12, 44, 0, 0, 0, "none", 0, cuda)[0] == 0  # fits shared memory
+    outs = [beam_scan(lp, lengths, **kw, _min_place=place) for place in (0, 1, 2)]
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        assert all(torch.equal(a, e) for a, e in zip(got[:3], outs[0][:3]))
+        assert all(torch.equal(a, e) for a, e in zip(got[3], outs[0][3]))
+    _assert_beam_equal(outs[0], beam_scan_reference(lp, lengths, **kw))
+
+
+@pytest.mark.cuda
+def test_beam_frame_timer_splits_without_changing_the_result(cuda):  # noqa: F811
+    """With ``k3_parts`` set, a launch hands back each block's clock64
+    sums a phase, its barriers and its frames; the outputs are the same
+    bits as without the timer."""
+    import tpuasr_torch.ops.beam as beam_mod
+
+    lp, lengths = _beam_inputs(cuda, 4, 20, 44, seed=2)
+    kw = dict(beam_width=10, blank_id=0, **_beam_lm("word", _beam_alphabet(44), cuda))
+    plain = beam_scan(lp, lengths, **kw)
+    beam_mod.k3_parts = []
+    try:
+        timed = beam_scan(lp, lengths, **kw)
+        torch.cuda.synchronize()
+        parts = beam_mod.k3_parts
+    finally:
+        beam_mod.k3_parts = None
+    assert all(torch.equal(a, e) for a, e in zip(timed, plain))
+    timer = parts[0]["timer"].cpu()
+    names = beam_mod.K3_PARTS
+    assert timer.shape == (4, len(names))
+    assert timer[:, names.index("frames")].tolist() == lengths.cpu().tolist()
+    live = lengths.cpu() > 0
+    assert bool((timer[live, names.index("loop")] > 0).all())
+    assert bool((timer[live, names.index("barriers")] >= 5 * lengths.cpu()[live]).all())
+    assert bool((timer[:, :names.index("loop")].sum(1) <= timer[:, names.index("loop")]).all())
 
 
 @pytest.mark.cuda
@@ -794,10 +883,10 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
         beam_scan(lp.transpose(0, 1).contiguous().transpose(0, 1), lengths, **kw)
     with pytest.raises(ValueError, match="int32"):
         beam_scan(lp, lengths.long(), **kw)
-    with pytest.raises(ValueError, match="beam width 255 > 254"):
-        beam_scan(lp, lengths, beam_width=255, blank_id=0)
-    with pytest.raises(ValueError, match="classes"):
-        beam_scan(torch.zeros(2, 3, 127, device=cuda), lengths[:2], **kw)
+    with pytest.raises(ValueError, match="blank_id"):
+        beam_scan(lp, lengths, beam_width=255, blank_id=5)
+    with pytest.raises(ValueError, match="fields"):
+        beam_scan(lp, lengths, **kw, state=make_beam_state(3, 4, device=cuda)[:4])
     word = _beam_lm("word", Alphabet(labels="_AB C"), "cpu")
     with pytest.raises(ValueError, match="LM tables"):
         beam_scan(lp, lengths, **kw, **word)

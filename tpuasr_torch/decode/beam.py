@@ -412,11 +412,9 @@ class DeviceBeamDecoder:
     """Batched device beam decoder with the framework decoder API plus
     ctcdecode-parity features: word- OR char-level LM fusion, cutoff
     pruning, n-best, per-char frame offsets. Logits on a CUDA device
-    decode through K3; logits on the CPU (or numpy) through its plain
-    PyTorch version. On a card, a configuration past K3's limits (beam
-    width, classes, LM order, or shared memory: ``ops.beam.k3_refusal``)
-    raises before any launch, naming the reason; so does a K3 launch
-    that fails."""
+    decode through K3 at any beam width, class count and LM order (a K3
+    launch that fails raises); logits on the CPU (or numpy) through its
+    plain PyTorch version."""
 
     def __init__(self, alphabet: Alphabet, beam_width: int = 10,
                  char_lm=None, word_lm=None, alpha: float = 0.0,

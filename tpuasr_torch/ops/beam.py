@@ -1,8 +1,9 @@
 """Fused CTC prefix beam search, K3 (port of ``tpuasr/ops/beam.py``).
 
 ``beam_scan`` wraps the hand-written Hopper kernel ``csrc/beam.cu``,
-which replaces ``tpuasr/ops/beam.py:_beam_kernel``: one launch decodes
-a whole batch, a thread block per utterance running the time loop with
+which replaces ``tpuasr/ops/beam.py:_beam_kernel`` and the XLA search
+that ``tpuasr`` falls back to past its limits: one launch decodes a
+whole batch, a thread block per utterance running the time loop with
 the beam state in shared memory. ``beam_scan_reference`` is its plain
 PyTorch version with the same arithmetic, vectorised over the batch,
 one frame per iteration. The wrapper runs the plain version only for
@@ -13,33 +14,30 @@ Per frame, in the TPU kernel's order: rank-form cutoff pruning
 the ``prune_logp`` floor, which the blank is exempt from), stay
 candidates, extend candidates in the pool layout stays (W) then extends
 (W*C, parent-major), exact stay<->extend absorption by the two 32-bit
-prefix hashes with the representative swap (the strongest absorbed
-extend, lowest flat index among equal maxima, takes the backpointer
-when it outweighs the stay), then top-W by W rounds of (max, lowest
-index, mask to -3e38). Frames at or past an utterance's length keep
-its state and emit identity backpointers.
+prefix hashes (K3 finds each stay's one match through its parent's
+hash: the same pairs, but for a 64-bit collision) with the
+representative swap (the strongest absorbed extend, lowest flat index
+among equal maxima, takes the backpointer when it outweighs the stay),
+then top-W by W rounds of (max, lowest index, mask to -3e38; K3 finds
+the same W in the same order by a radix select). Frames at or past an
+utterance's length keep its state and emit identity backpointers.
 
 LM fusion probes the packed ``HashedTables`` (``flat_tables``): the
 char LM by the XLA path's ``_char_lm_scores`` recursion over the last
 order - 1 classes of each beam, the word LM by ``_word_lm_score`` with
-the per-beam partial-word hash, completed-word ring and length. K3
-carries the char context packed 6 bits per class in 64 bits (orders up
-to ``MAX_CHAR_ORDER``, classes up to 64); the plain version carries the
-classes themselves and takes any order and class count. Stateful mode
-(``state=`` / ``return_state=True``) carries the beam state in and out
-in ``_state_dtypes`` order (the char context packed as K3 packs it), so
-chunked calls equal one call over the concatenation; the returned scores
-include the word LM's final close, which the carried state does not.
+the per-beam partial-word hash, completed-word ring and length. Both
+carry the char context as the class ids of each beam's last
+max(1, order - 1) chars, oldest first, as the XLA search does. Stateful
+mode (``state=`` / ``return_state=True``) carries the beam state in and
+out in ``_state_dtypes`` order, so chunked calls equal one call over the
+concatenation; the returned scores include the word LM's final close,
+which the carried state does not.
 
-K3 takes beam widths up to ``MAX_BEAM`` and classes up to
-``MAX_CLASSES`` (the one-copy output packing's limits), char-LM orders
-up to ``MAX_CHAR_ORDER``, word-LM orders up to ``MAX_WORD_ORDER``, and
-shapes whose shared memory fits the card (``k3_refusal``); past them,
-``beam_scan`` on a CUDA tensor raises before any launch, naming the
-reason. The plain version, which runs for CPU tensors, takes any width,
-class count and LM order, except in stateful mode with a char LM: the
-context it carries there is packed as K3 packs it, so classes up to 64
-and orders up to ``MAX_CHAR_ORDER`` (a stateless call takes any).
+Both take any beam width, class count and LM order. Backpointers are
+int8 when W <= 127 and C <= 126, else int32. K3 keeps the arrays that
+grow with W x C in shared memory when they fit beside the beam state,
+else in a global workspace the wrapper allocates (``_k3_plan``; the beam
+state too when it does not fit).
 
 Hash arithmetic: torch's uint32 has almost no arithmetic, so the plain
 version computes in int64 and masks to 32 bits after every product
@@ -68,47 +66,10 @@ from tpuasr_torch.decode.beam import (
 )
 from tpuasr_torch.ops import _build
 
-# K3 packs a char-LM context 6 bits per char (class ids < 64), newest
-# char in the low bits, in 64 bits.
-CTX_SHIFT = 6
-CTX_BITS = 64
-MAX_BEAM = 254  # K3: the one-copy output packing (decode/beam.py _packable)
-MAX_CLASSES = 126  # K3: int8 backpointers and the output packing
-MAX_WORD_ORDER = 8
-MAX_CHAR_ORDER = 11  # a context of 10 chars fills 60 of the 64 bits
 PICKED = -3.0e38  # below NEG: a picked candidate never ties a live one
 
 _MASK = 0xFFFFFFFF
 _MODES = {"none": 0, "char": 1, "word": 2}
-
-
-def k3_refusal(beam_width: int, c_num: int, lm_mode: str = "none", order: int = 0,
-               ring: int = 0, device=None) -> str | None:
-    """Why K3 cannot decode this configuration (None: it can). With a
-    CUDA ``device``, also whether its shared memory fits that card (K3's
-    own carve-out, asked of the C side)."""
-    if beam_width > MAX_BEAM:
-        return f"beam width {beam_width} > {MAX_BEAM}"
-    if c_num > MAX_CLASSES:
-        return f"{c_num} classes > {MAX_CLASSES}"
-    if lm_mode == "char":
-        if order > MAX_CHAR_ORDER:
-            return f"char-LM order {order} > {MAX_CHAR_ORDER}"
-        if c_num > (1 << CTX_SHIFT):
-            return f"char-LM fusion packs class ids in {CTX_SHIFT} bits; {c_num} classes > 64"
-    if lm_mode == "word" and order > MAX_WORD_ORDER:
-        return f"word-LM order {order} > {MAX_WORD_ORDER}"
-    if device is not None and torch.device(device).type == "cuda":
-        need, have = _k3_smem(beam_width, c_num, ring, torch.device(device))
-        if need > have:
-            return (f"beam width {beam_width} x {c_num} classes needs {need} bytes of "
-                    f"shared memory > {have}")
-    return None
-
-
-def _lm_order(char_tables, word_tables) -> int:
-    tabs = char_tables if char_tables is not None else word_tables
-    return 0 if tabs is None else int(tabs.order)
 
 
 # ---------------------------------------------------------------- hashing
@@ -142,13 +103,16 @@ def _lse(a, b):
 class FlatTables(NamedTuple):
     """``HashedTables`` on one device, all orders concatenated: keys as
     int32 bit patterns, values f32; ``meta`` holds (offset, cap, salt)
-    per order as Python ints (K3 reads them as kernel arguments)."""
+    per order as Python ints, ``meta_rows`` the same as an (order, 3)
+    int32 tensor on the device (salts as their bit patterns), which K3
+    reads."""
 
     keys1: torch.Tensor
     keys2: torch.Tensor
     logps: torch.Tensor
     backoffs: torch.Tensor
     meta: tuple
+    meta_rows: torch.Tensor
     order: int
     n_probes: int
 
@@ -169,9 +133,11 @@ def flat_tables(tables: HashedTables, device) -> FlatTables:
         return torch.from_numpy(np.concatenate(
             [np.asarray(a, np.float32) for a in arrs])).to(device)
 
+    meta = tuple((o, c, int(s)) for o, c, s in zip(offs, caps, salts))
+    rows = np.array([[o, c, s & _MASK] for o, c, s in meta], np.int64).reshape(-1, 3)
     return FlatTables(keys(tables.keys1), keys(tables.keys2), vals(tables.logps),
-                      vals(tables.backoffs),
-                      tuple((o, c, int(s)) for o, c, s in zip(offs, caps, salts)),
+                      vals(tables.backoffs), meta,
+                      torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(device),
                       int(tables.order), int(tables.n_probes))
 
 
@@ -250,32 +216,17 @@ def _char_lm_scores(ct: FlatTables, ctx, c_num: int):
 
 # ------------------------------------------------------------------ state
 
-def _pack_ctx(ctx: torch.Tensor) -> torch.Tensor:
-    """(..., k) chars, oldest first -> int64, 6 bits each, newest lowest
-    (K3's context)."""
-    k = ctx.shape[-1]
-    out = torch.zeros(ctx.shape[:-1], dtype=torch.int64, device=ctx.device)
-    for i in range(k):
-        out = (out << CTX_SHIFT) | ctx[..., i]
-    return out
-
-
-def _unpack_ctx(ctx: torch.Tensor, k: int) -> torch.Tensor:
-    """``_pack_ctx``'s inverse: int64 -> (..., k) chars, oldest first."""
-    return torch.stack([(ctx >> (CTX_SHIFT * (k - 1 - i))) & ((1 << CTX_SHIFT) - 1)
-                        for i in range(k)], -1)
-
-
 def _state_dtypes(lm_mode: str, ring_len: int) -> list:
     """Beam-state field dtypes for ``make_beam_state`` and stateful
-    calls, in K3's order: pb, pnb, h1, h2, last, [lm], [ctx],
-    [wh1, wh2, wlen, wc1_0.., wc2_0..]; ctx is the char context packed
-    in 64 bits (``_pack_ctx``)."""
+    calls, in K3's order: pb, pnb, h1, h2, last, [lm],
+    [ctx_0 .. ctx_{k-1}], [wh1, wh2, wlen, wc1_0.., wc2_0..]; ctx_i is
+    the class id of each beam's i-th last context char, oldest first
+    (k = ring_len for a char LM)."""
     dts = [torch.float32, torch.float32, torch.uint32, torch.uint32, torch.int32]
     if lm_mode in ("char", "word"):
         dts.append(torch.float32)  # lm
     if lm_mode == "char":
-        dts.append(torch.int64)  # ctx
+        dts += [torch.int32] * ring_len  # ctx, oldest first
     if lm_mode == "word":
         dts += [torch.uint32, torch.uint32, torch.int32]  # wh1, wh2, wlen
         dts += [torch.uint32] * (2 * ring_len)  # wc1_k then wc2_k
@@ -286,8 +237,11 @@ def make_beam_state(b: int, beam_width: int, *, lm_mode: str = "none",
                     ring_len: int = 0, device="cpu") -> tuple:
     """Fresh (stream-start) beam state: a tuple of (B, W) tensors equal
     to K3's own initial values, so a stateful call from it equals a
-    stateless one. ``lm_mode``: "none" | "char" | "word";
-    ``ring_len`` = max(1, order - 1) for word LMs."""
+    stateless one. ``lm_mode``: "none" | "char" | "word"; ``ring_len``
+    = max(1, order - 1) for both LMs: the word LM's completed-word ring,
+    or the char LM's context (class ids, oldest first)."""
+    if lm_mode in ("char", "word") and ring_len < 1:
+        raise ValueError(f"a {lm_mode}-LM state needs ring_len = max(1, order - 1) >= 1")
     w = beam_width
     pb = np.full((b, w), NEG, np.float32)
     pb[:, 0] = 0.0
@@ -298,7 +252,7 @@ def make_beam_state(b: int, beam_width: int, *, lm_mode: str = "none",
     if lm_mode in ("char", "word"):
         state.append(np.zeros((b, w), np.float32))  # lm
     if lm_mode == "char":
-        state.append(np.zeros((b, w), np.int64))  # ctx
+        state += [np.zeros((b, w), np.int32) for _ in range(ring_len)]  # ctx
     if lm_mode == "word":
         state += [np.zeros((b, w), np.uint32), np.zeros((b, w), np.uint32),
                   np.zeros((b, w), np.int32)]
@@ -335,7 +289,7 @@ def _lm_mode(char_tables, word_tables, space_id):
             raise ValueError("word-LM fusion needs space_id")
         return "word", max(1, word_tables.order - 1)
     if char_tables is not None:
-        return "char", 0
+        return "char", max(1, char_tables.order - 1)
     return "none", 0
 
 
@@ -354,7 +308,7 @@ def _check_shapes(logprobs, lengths, beam_width):
 def _out_dtype(beam_width: int, c_num: int):
     # backpointers fit int8 (parent < W, char in [-1, C)), as the TPU
     # kernel's wrapper emits them
-    return torch.int8 if beam_width <= 127 and c_num <= MAX_CLASSES else torch.int32
+    return torch.int8 if beam_width <= 127 and c_num <= 126 else torch.int32
 
 
 # ---------------------------------------------------------- plain version
@@ -373,11 +327,6 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     e_num = w * c_num
     f32 = dict(dtype=torch.float32, device=dev)
     alpha_t, beta_t = torch.tensor(alpha, **f32), torch.tensor(beta, **f32)
-    if lm_mode == "char" and (state is not None or return_state) and (
-            c_num > (1 << CTX_SHIFT) or char_tables.order > MAX_CHAR_ORDER):
-        raise ValueError(f"a stateful char-LM beam carries its context packed {CTX_SHIFT} "
-                         f"bits a class in {CTX_BITS}: classes up to {1 << CTX_SHIFT} and "
-                         f"orders up to {MAX_CHAR_ORDER}")
     if state is None:
         state = make_beam_state(b, w, lm_mode=lm_mode, ring_len=ring, device=dev)
     fields = [f.to(torch.int64) if f.dtype in (torch.uint32, torch.int32) else f
@@ -385,12 +334,11 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     pb, pnb, h1, h2, last = fields[:5]
     rest = fields[5:]
     lm = rest.pop(0) if lm_mode != "none" else None
-    ctx = rest.pop(0) if lm_mode == "char" else None
+    if lm_mode == "char":  # the last k_ctx chars of each beam, oldest first
+        ctx = torch.stack(rest[:ring], -1)
     if lm_mode == "word":
         wh1, wh2, wlen = rest[:3]
         wc1s, wc2s = list(rest[3:3 + ring]), list(rest[3 + ring:])
-    if lm_mode == "char":  # the last k_ctx chars of each beam, oldest first
-        ctx = _unpack_ctx(ctx, max(1, char_tables.order - 1))
 
     iota_c = torch.arange(c_num, device=dev)
     iota_w = torch.arange(w, device=dev)
@@ -535,7 +483,7 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
     if lm_mode != "none":
         state_out.append(lm)
     if lm_mode == "char":
-        state_out.append(_pack_ctx(ctx) if return_state else None)
+        state_out += list(ctx.unbind(-1))
     if lm_mode == "word":
         # close the final partial word (ctcdecode finish_decoding); the
         # carried state does not include it
@@ -552,71 +500,74 @@ def beam_scan_reference(logprobs, lengths, *, beam_width, blank_id,
 
 # ---------------------------------------------------------------- kernel
 
+# The C side's frame-timer columns: clock64 spans of thread 0 summed over
+# an utterance's live frames (the wait for the prefetched lp row and the
+# frame's last barrier, pruning + per-beam LM state, extends with their
+# pool scores, absorption with the stays' pool scores, top-W, survivors +
+# backpointers), the whole loop, the barriers passed and the frames.
+K3_PARTS = ("row", "prune_lm", "extend", "absorb", "topw", "survive", "loop", "barriers",
+            "frames")
+# A list to split K3's frame: each launch appends {"timer": (B,
+# len(K3_PARTS)) int64 tensor, "lengths": the call's lengths}; None: no
+# timer (the main path).
+k3_parts: list | None = None
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """K3's library (built on first use) with its C signature."""
     lib = _build.load("beam")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.tpuasr_beam_scan.argtypes = (
         [p, p] + [i] * 6 + [f, f]  # lp, lengths; B T C W blank top_n; cutoff, prune
         + [i] + [p] * 4 + [p, i, i]  # lm_mode; k1 k2 lp bo; meta, order, n_probes
-        + [f, f, i, i, i]  # alpha, beta, space, has_beta, ring
-        + [p, p, p, p, p, i, p])  # state_in, state_out, parents, chars, scores, out8, stream
+        + [f, f, i, i, i, i]  # alpha, beta, space, has_beta, ring, k_ctx
+        + [p, p, p, p, p, i]  # state_in, state_out, parents, chars, scores, out8
+        + [i, p, ll, p, p])  # min_place, work, work_stride, timer, stream
     lib.tpuasr_beam_scan.restype = ctypes.c_int
-    lib.tpuasr_beam_smem.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
-    lib.tpuasr_beam_smem.restype = ctypes.c_int
+    lib.tpuasr_beam_plan.argtypes = [i] * 7 + [ctypes.POINTER(i), ctypes.POINTER(ll)]
+    lib.tpuasr_beam_plan.restype = ctypes.c_int
     lib.tpuasr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-@functools.cache
-def _k3_smem(beam_width: int, c_num: int, ring: int, device: torch.device) -> tuple[int, int]:
-    """(K3's shared memory at this shape, the card's opt-in limit), in
-    bytes, from the C side."""
-    lib = _lib()
-    need, have = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        err = lib.tpuasr_beam_smem(beam_width, c_num, ring, ctypes.byref(need),
-                                   ctypes.byref(have))
+def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.tpuasr_cuda_error_string(err).decode()
-        raise RuntimeError(f"tpuasr_beam_smem failed: {msg} ({err})")
-    return need.value, have.value
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+@functools.cache
+def _k3_plan(beam_width: int, c_num: int, ring: int, k_ctx: int, order: int, lm_mode: str,
+             min_place: int, device: torch.device) -> tuple[int, int]:
+    """(where K3 keeps its arrays: 0 all in shared memory, 1 the pool in
+    the workspace, 2 the state too; the workspace a block needs, in
+    bytes), from the C side for this card."""
+    lib = _lib()
+    place, work = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device):
+        err = lib.tpuasr_beam_plan(beam_width, c_num, ring, k_ctx, order, _MODES[lm_mode],
+                                   min_place, ctypes.byref(place), ctypes.byref(work))
+    _raise_on(lib, err, "tpuasr_beam_plan")
+    return place.value, work.value
 
 
 def _stack_state(fields):
-    """State fields -> one contiguous (n_rows, B, W) int32 tensor of their
-    bit patterns (K3 reads f32 and uint32 fields through it; the int64
-    char context as two rows, its low then its high 32 bits)."""
-    rows = []
-    for f in fields:
-        f = f.contiguous()
-        if f.dtype == torch.int64:
-            rows += list(f.view(torch.int32).reshape(*f.shape, 2).unbind(-1))
-        else:
-            rows.append(f.view(torch.int32))
-    return torch.stack(rows).contiguous()
+    """State fields -> one contiguous (n_fields, B, W) int32 tensor of
+    their bit patterns (K3 reads the f32 and uint32 fields through it)."""
+    return torch.stack([f.contiguous().view(torch.int32) for f in fields]).contiguous()
 
 
 def _unstack_state(rows, dtypes) -> tuple:
-    """``_stack_state``'s inverse."""
-    fields, i = [], 0
-    for dt in dtypes:
-        if dt == torch.int64:
-            fields.append(torch.stack([rows[i], rows[i + 1]], -1).contiguous()
-                          .view(torch.int64)[..., 0])
-            i += 2
-        else:
-            fields.append(rows[i].view(dt))
-            i += 1
-    return tuple(fields)
+    """``_stack_state``'s inverse; every row needs its dtype."""
+    return tuple(r.view(dt) for r, dt in zip(rows, dtypes, strict=True))
 
 
 def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
               cutoff_prob=1.0, prune_logp=-20.0, char_tables=None,
               word_tables=None, alpha=0.0, beta=0.0, space_id=None,
-              state=None, return_state=False):
+              state=None, return_state=False, _min_place=0):
     """Fused prefix beam search over a batch: no LM, char LM or word LM.
 
     Args:
@@ -631,9 +582,12 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
       W <= 127 and C <= 126, else int32), scores (B, W) f32 unsorted;
       with ``return_state`` the post-scan state tuple appended.
 
-    CUDA tensors run K3 (one launch, counted in ``beam_scan.launches``),
-    or raise for a configuration past its limits (``k3_refusal``); CPU
-    tensors run ``beam_scan_reference``."""
+    CUDA tensors run K3 (one launch, counted in ``beam_scan.launches``)
+    at any width, class count and LM order, or raise for arguments it
+    does not take (device, dtype, shape, contiguity) or a failed launch;
+    CPU tensors run ``beam_scan_reference``. ``_min_place`` (tests only)
+    forces K3's arrays out of shared memory: 1 the W x C pool into the
+    global workspace, 2 the beam state too."""
     kw = dict(beam_width=beam_width, blank_id=blank_id, cutoff_top_n=cutoff_top_n,
               cutoff_prob=cutoff_prob, prune_logp=prune_logp, char_tables=char_tables,
               word_tables=word_tables, alpha=alpha, beta=beta, space_id=space_id,
@@ -646,55 +600,62 @@ def beam_scan(logprobs, lengths, *, beam_width, blank_id, cutoff_top_n=40,
     _check_shapes(logprobs, lengths, beam_width)
     b, t_n, c_num = logprobs.shape
     w, dev = beam_width, logprobs.device
-    why_not = k3_refusal(w, c_num, lm_mode, _lm_order(char_tables, word_tables), ring, dev)
-    if why_not is not None:
-        raise ValueError(f"K3 does not take this configuration: {why_not}")
     if logprobs.dtype != torch.float32 or not logprobs.is_contiguous():
         raise ValueError("logprobs must be contiguous float32")
     if lengths.dtype != torch.int32 or lengths.device != dev:
         raise ValueError(f"lengths must be int32 on {dev}")
     if not 0 <= blank_id < c_num:
         raise ValueError(f"blank_id {blank_id} outside [0, {c_num})")
+    if lm_mode == "word" and not 0 <= space_id < c_num:
+        raise ValueError(f"space_id {space_id} outside [0, {c_num})")
     tabs = char_tables if char_tables is not None else word_tables
     if tabs is not None and tabs.keys1.device != dev:
         raise ValueError(f"LM tables are on {tabs.keys1.device}, not {dev}")
+    if tabs is not None and tabs.keys1.data_ptr() % 16:
+        raise ValueError("LM tables' keys1 must be 16-byte aligned (K3 reads them 4 keys at a "
+                         "time); flat_tables allocates them so")
     state_in = None
     if state is not None:
         state_in = _stack_state(_check_state(state, b, w, lm_mode, ring, dev))
     dtypes = _state_dtypes(lm_mode, ring)
-    n_rows = len(dtypes) + sum(dt == torch.int64 for dt in dtypes)
-    state_out = (torch.empty((n_rows, b, w), dtype=torch.int32, device=dev)
+    state_out = (torch.empty((len(dtypes), b, w), dtype=torch.int32, device=dev)
                  if return_state else None)
     out_dt = _out_dtype(w, c_num)
     parents = torch.empty((b, t_n, w), dtype=out_dt, device=dev)
     chars = torch.empty((b, t_n, w), dtype=out_dt, device=dev)
     scores = torch.empty((b, w), dtype=torch.float32, device=dev)
     if tabs is not None:
-        meta = (ctypes.c_int * (3 * tabs.order))(*[v for row in tabs.meta for v in (
-            row[0], row[1], ctypes.c_int32(row[2] & _MASK).value)])
-        meta_ptr = ctypes.addressof(meta)
         tab_ptrs = [tabs.keys1.data_ptr(), tabs.keys2.data_ptr(), tabs.logps.data_ptr(),
-                    tabs.backoffs.data_ptr()]
+                    tabs.backoffs.data_ptr(), tabs.meta_rows.data_ptr()]
         order, n_probes = tabs.order, tabs.n_probes
     else:
-        meta_ptr, tab_ptrs, order, n_probes = None, [None] * 4, 0, 0
+        tab_ptrs, order, n_probes = [None] * 5, 0, 0
+    ring_arg = ring if lm_mode == "word" else 0
+    k_ctx = ring if lm_mode == "char" else 0
+    _, work_bytes = _k3_plan(w, c_num, ring_arg, k_ctx, order, lm_mode, _min_place, dev)
+    work = (torch.empty((b * work_bytes,), dtype=torch.uint8, device=dev)
+            if work_bytes and b else None)
     has_beta = int(lm_mode == "char" and space_id is not None and beta != 0.0)
+    timer = (None if k3_parts is None else
+             torch.zeros((b, len(K3_PARTS)), dtype=torch.int64, device=dev))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tpuasr_beam_scan(
             logprobs.data_ptr(), lengths.data_ptr(), b, t_n, c_num, w, blank_id,
             min(cutoff_top_n, c_num), cutoff_prob, prune_logp, _MODES[lm_mode],
-            *tab_ptrs, meta_ptr, order, n_probes, alpha, beta,
-            -1 if space_id is None else space_id, has_beta, ring,
+            *tab_ptrs, order, n_probes, alpha, beta,
+            -1 if space_id is None else space_id, has_beta, ring_arg, k_ctx,
             None if state_in is None else state_in.data_ptr(),
             None if state_out is None else state_out.data_ptr(),
             parents.data_ptr(), chars.data_ptr(), scores.data_ptr(),
-            int(out_dt == torch.int8), stream)
-    if err != 0:
-        msg = lib.tpuasr_cuda_error_string(err).decode()
-        raise RuntimeError(f"tpuasr_beam_scan kernel launch failed: {msg} ({err})")
+            int(out_dt == torch.int8), _min_place,
+            None if work is None else work.data_ptr(), work_bytes,
+            None if timer is None else timer.data_ptr(), stream)
+    _raise_on(lib, err, "tpuasr_beam_scan kernel launch")
     beam_scan.launches += 1
+    if timer is not None:
+        k3_parts.append({"timer": timer, "lengths": lengths})
     if return_state:
         return parents, chars, scores, _unstack_state(state_out, dtypes)
     return parents, chars, scores

@@ -3,9 +3,11 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel tpuasr/ops/beam.py:_beam_kernel (launched by
-// beam_scan_pallas at beam.py:889) and computes its function: the plain
-// PyTorch version is tpuasr_torch/ops/beam.py:beam_scan_reference, which
-// holds the same arithmetic in the same order. Per frame of one utterance:
+// beam_scan_pallas at beam.py:889) and computes its function, and that of
+// the XLA search it falls back to (tpuasr/decode/beam.py), for any beam
+// width, class count and LM order: the plain PyTorch version is
+// tpuasr_torch/ops/beam.py:beam_scan_reference, which holds the same
+// arithmetic in the same order. Per frame of one utterance:
 //   1. keep[c] = rank(c) < top_n (rank = #classes with a strictly better
 //      (lp, index)); with cutoff_prob < 1 also the exclusive better-ranked
 //      probability mass < cutoff_prob; lp > prune_logp unless c is blank.
@@ -19,8 +21,8 @@
 //      mass into pnb (log-sum-exp against the frame's largest extend) and
 //      takes its (parent, char) when the extend outweighs the stay (lowest
 //      flat index among equal maxima); absorbed extends leave the pool.
-//   5. pool = W stays then W*C extends; top-W by W rounds of (max, lowest
-//      index, mask to -3e38).
+//   5. pool = W stays then W*C extends; the W best by (score, then lowest
+//      index), in that order.
 //   6. the survivors' state (word LM: the parent's word state, then the
 //      space/grow transitions); backpointers out.
 // Frames at or past the utterance's length keep the state and emit
@@ -31,40 +33,76 @@
 // LM lookups probe the packed HashedTables in global memory as the XLA
 // path's _probe does: n_probes consecutive slots from the home slot
 // (h1 & (cap-1), or fmix32(h1 ^ salt) & (cap-1)); a hit needs both keys
-// equal and the slot non-empty. The char LM runs the _char_lm_scores
-// recursion with the context packed 6 bits a class (newest lowest) in 64
-// bits, so char orders up to 11 fuse; the word LM _word_lm_score with the
-// partial-word hash, the completed-word ring and the partial length.
-// Products by alpha use __fmul_rn/__fadd_rn so that nvcc does not contract
-// them into an FMA the plain version lacks.
+// equal and the slot non-empty. The per-order (offset, cap, salt) rows are
+// a small device array, copied to shared memory at the start. The char LM
+// runs the _char_lm_scores recursion over each beam's context, its last
+// k_ctx = max(1, order - 1) class ids (oldest first, as the XLA search's
+// ctx); the word LM _word_lm_score with the partial-word hash, the
+// completed-word ring (order - 1 tokens, read in shared memory) and the
+// partial length. Products by alpha use __fmul_rn/__fadd_rn so that nvcc
+// does not contract them into an FMA the plain version lacks.
 //
-// Limits: W <= 254 and C <= 126 (the one-copy output packing), char-LM
-// orders <= 11 with C <= 64, word-LM orders <= 8, and the shared memory of
-// (W, C, ring) within the card's opt-in limit (tpuasr_beam_smem). The
-// decoder runs the plain version on the device past them, and says so.
+// No limit on W, C or the LM order: backpointers are int8 when W <= 127 and
+// C <= 126, else int32; the arrays that grow with W*C (the pool: scores,
+// extend masses, extend LM scores) live in shared memory when they fit
+// beside the beam state, else in a global workspace the wrapper allocates,
+// one slice a block; the beam state too when it does not fit
+// (tpuasr_beam_plan chooses; the code path is the same, the base pointers
+// differ).
 //
 // Layouts: lp (B, T, C) f32; lengths (B) int32; parents, chars (B, T, W)
 // int8 or int32; scores (B, W) f32; state (n_fields, B, W) int32 bit
-// patterns in the order pb, pnb, h1, h2, last, [lm], [ctx lo, ctx hi],
+// patterns in the order pb, pnb, h1, h2, last, [lm], [ctx_0 .. ctx_{k-1}],
 // [wh1, wh2, wlen, wc1_0.., wc2_0..]; tables all orders concatenated, meta
 // (order, 3) = offset, cap, salt.
 //
-// Bound. At B=32, T'=251, W=10, C=44 the work is ~20 k f32 operations a
-// frame and utterance (the C*C rank compares, the 450-candidate pool's
-// log-adds, 10 max passes over it), 161 M operations: 2.4 us at 67 TFLOP/s;
+// Bound. At B=32, T'=251, W=10, C=42 the work is ~20 k f32 operations a
+// frame and utterance (the C*C rank compares, the 430-candidate pool's
+// log-adds and selection passes), 161 M operations: 2.4 us at 67 TFLOP/s;
 // the bytes (1.4 MB of log-probs in, 0.16 MB of int8 backpointers out) take
-// 0.5 us. The real floor is the chain of T dependent frames, each a few
-// block-wide barriers.
+// 0.5 us. The real floor is the chain of T dependent frames, each ~9
+// block-wide barriers and a few L2 round trips (the LM probes).
 //
-// Design (simple first; speed is later work). One thread block per
-// utterance runs the whole time loop, so a decode is one launch with no grid
-// barrier; the lp row, the beam state (double-buffered: the survivors read
-// their parents' state while writing the next), the extend scores and the
-// pool live in shared memory (dynamic, sized from W, C and the LM). Classes
-// and beams map to threads from opposite ends of the block so that rank and
-// per-beam LM work overlap; one warp per stay scans the extends for
-// absorption; warp 0 alone runs the W selection rounds with warp shuffles,
-// each lane owning a strided slice of the pool. Templated on the LM mode.
+// Design. One thread block of 512 threads per utterance runs the whole
+// time loop, so a decode is one launch with no grid barrier (16 warps: the
+// frame's phases are latency chains, and more warps hide more of them).
+// Per frame (the phases and the clock64 frame timer: ops/beam.py
+// K3_PARTS, chip_smoke beam_split):
+//   * the next frame's lp row is copied into a shared double buffer with
+//     cp.async (4-byte words: a row of C floats is not 16-byte aligned at
+//     every (b, t)) while this frame runs;
+//   * rank pruning on all warps (a warp per class, ballots over 32 others
+//     at a time); per-beam work on threads counted from the block's end,
+//     so both overlap: each word-LM probe of each beam on a thread of its
+//     own (word_item; the extend on the space combines them, word_combine),
+//     the char context chains a thread per (beam, order);
+//   * stay<->extend matching by prefix: a stay's hash is mix32(parent
+//     hash, last char), and mix32 is invertible in the hash, so each stay
+//     unmixes its own hash and looks its parent up in an open-addressed
+//     table of the beams' hashes in shared memory (filled by the previous
+//     frame's survivors): W lookups a frame in place of W*C hash compares.
+//     A match marks the parent's extend by that char in a bitmask, which
+//     the extend pass reads; the extend pass also writes the extends' pool
+//     scores and the first radix histogram, and probes the char LM only
+//     for extends above NEG (one at NEG is never selected: the dead stays,
+//     first in the pool, win that tie);
+//   * each stay then absorbs its one matching extend. The plain version
+//     matches by hash equality; the two differ only where two different
+//     prefixes share both 32-bit hashes (a 64-bit collision);
+//   * top-W is a block-wide radix select: scores map to order-preserving
+//     32-bit keys, 8-bit digits, one shared histogram a pass (the lanes
+//     that share lane 0's digit add once), warp 0 finds the digit that
+//     holds the W-th key; a pass whose bin is taken whole ends the search.
+//     The W survivors (keys above the threshold, then the lowest indices
+//     of those equal to it) are compacted in pool-index order by one block
+//     scan, and each takes the slot of its rank among them, which
+//     reproduces W rounds of (max, lowest index) exactly.
+// An LM probe reads its 8-slot window's first keys in three 16-byte loads
+// and the rest only where a first key matches: the probes were bound by
+// L1 requests (16 scattered 4-byte loads each) and, in the word score, by
+// a chain of dependent probes, which the per-item threads break.
+// Templated on the LM mode and on a clock64 frame timer (off on the main
+// path).
 
 #include <cuda_runtime.h>
 
@@ -74,35 +112,42 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr float PICKED = -3.0e38f;
 constexpr float OOV_LOGP = -20.0f;
 constexpr float WORD_OOV_NAT = static_cast<float>(-99.0 * 2.302585092994046);
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
-constexpr int MAX_W = 254;  // the one-copy output packing's limit (decode/beam.py)
-constexpr int MAX_C = 126;  // int8 backpointers and the output packing
-constexpr int MAX_WORD_ORDER = 8;
-constexpr int MAX_RING = MAX_WORD_ORDER - 1;
-constexpr int MAX_CHAR_ORDER = 11;  // a context of 10 chars fills 60 of 64 bits
-constexpr int MAX_ORDER = MAX_CHAR_ORDER;
-constexpr int CTX_SHIFT = 6;
+constexpr int RADIX = 256;       // 8-bit digits: 4 passes over a 32-bit key
+constexpr int PROBE_UNROLL = 8;  // the packers' n_probes (vector loads); others run a loop
+constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t M1 = 0x9E3779B1u;
 constexpr uint32_t M2 = 0x85EBCA77u;
+constexpr uint32_t M1_INV = 0x0E8B2F51u;  // M * M_INV = 1 mod 2^32
+constexpr uint32_t M2_INV = 0xB6C92F47u;
 constexpr uint32_t BOS1 = 0x7F4A7C15u, BOS2 = 0x3C6EF372u;
 constexpr uint32_t UNK1 = 0x9E3779B9u, UNK2 = 0x85EBCA6Bu;
 constexpr uint32_t PAD1 = 0x50AD50ADu, PAD2 = 0xDEFACED1u;
 
 enum { LM_NONE = 0, LM_CHAR = 1, LM_WORD = 2 };
+// Where the arrays live: all in shared memory; the pool in the workspace;
+// the beam state and the pool in the workspace.
+enum { PLACE_SHARED = 0, PLACE_POOL = 1, PLACE_ALL = 2 };
+
+// The frame timer's columns (ops/beam.py K3_PARTS): clock64 spans of
+// thread 0 summed over the live frames: the wait for the prefetched lp
+// row and the frame's last barrier, pruning + per-beam LM state + the
+// stays' table, extends (+ flags, their pool scores and first histogram),
+// absorption (+ the stays' pool scores), top-W, survivors + backpointers;
+// then the whole loop, the barriers passed and the frames.
+enum { SP_ROW, SP_PRUNE, SP_EXTEND, SP_ABSORB, SP_TOPW, SP_SURVIVE, SP_LOOP, SP_BARRIERS,
+       SP_FRAMES, K3_PARTS };
 
 struct Tables {
   const uint32_t* k1;
   const uint32_t* k2;
   const float* lp;
   const float* bo;
+  const int* meta;  // (order, 3) offset, cap, salt, in device memory
   int order, n_probes;
-  int off[MAX_ORDER];
-  int cap[MAX_ORDER];
-  uint32_t salt[MAX_ORDER];
 };
 
 struct Params {
@@ -110,7 +155,7 @@ struct Params {
   const int* lengths;
   int B, T, C, W, blank, top_n;
   float cutoff_prob, prune_logp, alpha, beta;
-  int space, has_beta, ring, ctx_len;
+  int space, has_beta, ring, k_ctx;
   Tables tb;
   const int* state_in;
   int* state_out;
@@ -118,69 +163,118 @@ struct Params {
   void* chars;
   float* scores;
   int out8;
+  int place;
+  unsigned char* work;  // workspace, work_stride bytes a block, or null
+  size_t work_stride;
+  long long* timer;  // (B, K3_PARTS) clock64 sums of thread 0, or null
 };
 
-// Shared memory carve-out, the same on the host (base = nullptr, for the
-// size) and in the kernel.
-struct Smem {
-  float *lp, *pb, *pnb, *lm, *ptot, *spb, *spnb, *bonus, *cbo, *ext, *extlm,
-      *score, *wmax;
-  int *keep, *last, *wlen, *spar, *snew, *sel;
-  uint64_t* ctx;
-  uint32_t *h1, *h2, *wh1, *wh2, *wc1, *wc2, *weff1, *weff2, *ch1, *ch2;
-  unsigned char* flag;
+// The beam state and per-frame scratch that grow with W (and the LM's
+// order and ring), and the pool that grows with W*C. The same carve-out
+// runs on the host (base = nullptr, for the sizes) and in the kernel.
+struct State {
+  float *lpb, *pb, *pnb, *lm, *ptot, *spb, *spnb, *cbo, *wv, *wb;
+  int *meta, *keep, *last, *wlen, *ctx, *spar, *snew, *mext, *ht, *surv, *wf;
+  uint32_t *h1, *h2, *wh1, *wh2, *wc1, *wc2, *ch1, *ch2, *survk, *amask;
 };
 
-__host__ __device__ inline size_t carve(unsigned char* base, int W, int C,
-                                        int ring, Smem* s) {
-  const size_t E = static_cast<size_t>(W) * C, P = W + E;
-  size_t off = 0;
-  auto take = [&](size_t n) {  // n 4-byte words
+struct Pool {
+  float *score, *extv, *extlm;
+};
+
+// The word LM's probe items a beam and frame (word_item), top = min(order
+// - 1, ring).
+__host__ __device__ inline int word_items(int top) { return 3 * top + 3; }
+
+__host__ __device__ inline int ht_size(int W) {  // a power of two >= 2W
+  int n = 32;
+  while (n < 2 * W) n *= 2;
+  return n;
+}
+
+struct Carver {
+  unsigned char* base;
+  size_t off;
+  template <typename Ptr>
+  __host__ __device__ Ptr take(size_t words) {  // 4-byte words, each array 16-byte aligned
     unsigned char* p = base ? base + off : nullptr;
-    off += 4 * n;
-    return p;
-  };
-  // the 8-byte char contexts first, at offset 0: [2][W]
-  s->ctx = reinterpret_cast<uint64_t*>(take(4 * static_cast<size_t>(W)));
-  s->lp = reinterpret_cast<float*>(take(C));
-  s->keep = reinterpret_cast<int*>(take(C));
-  // double-buffered beam state: [2][W] (rings [2][ring][W])
-  s->pb = reinterpret_cast<float*>(take(2 * W));
-  s->pnb = reinterpret_cast<float*>(take(2 * W));
-  s->lm = reinterpret_cast<float*>(take(2 * W));
-  s->h1 = reinterpret_cast<uint32_t*>(take(2 * W));
-  s->h2 = reinterpret_cast<uint32_t*>(take(2 * W));
-  s->last = reinterpret_cast<int*>(take(2 * W));
-  s->wh1 = reinterpret_cast<uint32_t*>(take(2 * W));
-  s->wh2 = reinterpret_cast<uint32_t*>(take(2 * W));
-  s->wlen = reinterpret_cast<int*>(take(2 * W));
-  s->wc1 = reinterpret_cast<uint32_t*>(take(2 * static_cast<size_t>(ring) * W));
-  s->wc2 = reinterpret_cast<uint32_t*>(take(2 * static_cast<size_t>(ring) * W));
+    off += (4 * words + 15) & ~static_cast<size_t>(15);
+    return reinterpret_cast<Ptr>(p);
+  }
+};
+
+__host__ __device__ inline size_t carve_state(unsigned char* base, int W, int C, int ring,
+                                              int k_ctx, int order, State* s) {
+  Carver cv{base, 0};
+  const size_t w = W, w2 = 2 * static_cast<size_t>(W);
+  s->lpb = cv.take<float*>(2 * static_cast<size_t>(C));  // [2][C], the prefetch ring
+  s->keep = cv.take<int*>(C);
+  s->meta = cv.take<int*>(3 * static_cast<size_t>(order));
+  // double-buffered beam state: [2][W] (rings [2][ring][W], ctx [2][k_ctx][W])
+  s->pb = cv.take<float*>(w2);
+  s->pnb = cv.take<float*>(w2);
+  s->lm = cv.take<float*>(w2);
+  s->h1 = cv.take<uint32_t*>(w2);
+  s->h2 = cv.take<uint32_t*>(w2);
+  s->last = cv.take<int*>(w2);
+  s->wh1 = cv.take<uint32_t*>(w2);
+  s->wh2 = cv.take<uint32_t*>(w2);
+  s->wlen = cv.take<int*>(w2);
+  s->wc1 = cv.take<uint32_t*>(w2 * ring);
+  s->wc2 = cv.take<uint32_t*>(w2 * ring);
+  s->ctx = cv.take<int*>(w2 * k_ctx);
   // per-frame scratch
-  s->ptot = reinterpret_cast<float*>(take(W));
-  s->spb = reinterpret_cast<float*>(take(W));
-  s->spnb = reinterpret_cast<float*>(take(W));
-  s->bonus = reinterpret_cast<float*>(take(W));
-  s->spar = reinterpret_cast<int*>(take(W));
-  s->snew = reinterpret_cast<int*>(take(W));
-  s->sel = reinterpret_cast<int*>(take(W));
-  s->weff1 = reinterpret_cast<uint32_t*>(take(W));
-  s->weff2 = reinterpret_cast<uint32_t*>(take(W));
-  s->ch1 = reinterpret_cast<uint32_t*>(take(static_cast<size_t>(W) * MAX_ORDER));
-  s->ch2 = reinterpret_cast<uint32_t*>(take(static_cast<size_t>(W) * MAX_ORDER));
-  s->cbo = reinterpret_cast<float*>(take(static_cast<size_t>(W) * MAX_ORDER));
-  s->wmax = reinterpret_cast<float*>(take(NWARPS));
-  s->ext = reinterpret_cast<float*>(take(E));
-  s->extlm = reinterpret_cast<float*>(take(E));
-  s->score = reinterpret_cast<float*>(take(P));
-  s->flag = base ? base + off : nullptr;
-  off += E;
-  return off;
+  s->ptot = cv.take<float*>(w);
+  s->spb = cv.take<float*>(w);
+  s->spnb = cv.take<float*>(w);
+  s->spar = cv.take<int*>(w);
+  s->snew = cv.take<int*>(w);
+  s->mext = cv.take<int*>(w);
+  s->surv = cv.take<int*>(w);
+  s->survk = cv.take<uint32_t*>(w);
+  s->ht = cv.take<int*>(2 * static_cast<size_t>(ht_size(W)));  // [2][HT], a frame each
+  s->amask = cv.take<uint32_t*>(w * ((C + 31) / 32));  // [W][C / 32] absorbed extends
+  s->ch1 = cv.take<uint32_t*>(w * order);  // [order][W]
+  s->ch2 = cv.take<uint32_t*>(w * order);
+  s->cbo = cv.take<float*>(w * order);
+  // the word LM's probe items (ring > 0 only with a word LM)
+  const size_t wi = ring > 0 ? w * word_items(order - 1 < ring ? order - 1 : ring) : 0;
+  s->wf = cv.take<int*>(wi);
+  s->wv = cv.take<float*>(wi);
+  s->wb = cv.take<float*>(wi);
+  return cv.off;
+}
+
+__host__ __device__ inline size_t carve_pool(unsigned char* base, int W, int C, bool lm,
+                                             Pool* q) {
+  Carver cv{base, 0};
+  const size_t E = static_cast<size_t>(W) * C;
+  q->score = cv.take<float*>(W + E);
+  q->extv = cv.take<float*>(E);
+  q->extlm = lm ? cv.take<float*>(E) : nullptr;
+  return cv.off;
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h, uint32_t x, uint32_t m) {
   h = (h ^ x) * m;
   return h ^ (h >> 15);
+}
+
+// mix32's inverse in h: the parent hash of a prefix hash and its last char.
+__device__ __forceinline__ uint32_t unmix32(uint32_t h, uint32_t x, uint32_t m_inv) {
+  h ^= (h >> 15) ^ (h >> 30);
+  return (h * m_inv) ^ x;
+}
+
+// The home slot of a prefix hash in the beams' table (HT a power of two).
+__device__ __forceinline__ int ht_home(uint32_t h1, int HT) {
+  return static_cast<int>((h1 * M1) >> (33 - __ffs(HT)));
+}
+
+// Puts beam j's hash in a table: open addressing, linear probing.
+__device__ __forceinline__ void ht_insert(int* ht, int HT, uint32_t h1, int j) {
+  for (int k = ht_home(h1, HT);; k = (k + 1) & (HT - 1))
+    if (atomicCAS(&ht[k], -1, j) == -1) return;
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -196,21 +290,82 @@ __device__ __forceinline__ float lse(float a, float b) {
   return fmaxf(ms + log1pf(expf(fminf(a, b) - ms)), NEG);
 }
 
-// Order-k lookup: found, logp (NEG when absent), backoff.
-__device__ void probe(const Tables& tb, int k, uint32_t q1, uint32_t q2,
-                      bool* found, float* val, float* bo) {
-  const uint32_t mask = static_cast<uint32_t>(tb.cap[k] - 1);
-  const uint32_t salt = tb.salt[k];
+// An order-preserving 32-bit key of a score (-0 as +0, so that equal
+// scores have equal keys).
+__device__ __forceinline__ uint32_t score_key(float v) {
+  uint32_t u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts the copy of one lp row into the ring: cp.async into shared
+// memory, or plain copies into a buffer in the workspace.
+__device__ __forceinline__ void load_row(float* dst, const float* src, int C) {
+  if (__isShared(dst)) {
+    for (int c = threadIdx.x; c < C; c += THREADS) cp_async4(dst + c, src + c);
+    cp_async_commit();
+  } else {
+    for (int c = threadIdx.x; c < C; c += THREADS) dst[c] = src[c];
+  }
+}
+
+// Order-k lookup: found, logp (NEG when absent), backoff. With the
+// packers' 8 slots the window's first keys come in three aligned 16-byte
+// loads (caps and offsets are multiples of 8 slots): one round trip and 3
+// L1 requests in place of 16; the second key and the values are loaded
+// only where the first key matches, and hits add in slot order.
+__device__ __forceinline__ void probe(const Tables& tb, const int* meta, int k, uint32_t q1,
+                                      uint32_t q2, bool* found, float* val, float* bo) {
+  const int off = meta[3 * k];
+  const uint32_t mask = static_cast<uint32_t>(meta[3 * k + 1] - 1);
+  const uint32_t salt = static_cast<uint32_t>(meta[3 * k + 2]);
   const uint32_t slot = (salt ? fmix32(q1 ^ salt) : q1) & mask;
   bool f = false;
   float v = 0.0f, b = 0.0f;
-  for (int p = 0; p < tb.n_probes; ++p) {
-    const int s = tb.off[k] + static_cast<int>((slot + p) & mask);
-    const uint32_t a1 = tb.k1[s], a2 = tb.k2[s];
-    if (a1 == q1 && a2 == q2 && (a1 | a2) != 0u) {
-      f = true;
-      v += tb.lp[s];
-      b += tb.bo[s];
+  if (tb.n_probes == PROBE_UNROLL) {
+    const uint32_t g0 = slot & ~3u;
+    uint32_t hits = 0u;  // bit i: the first key at slot g0 + i equals q1
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(tb.k1 + off + ((g0 + 4 * g) & mask)));
+      hits |= (static_cast<uint32_t>(x.x == q1) | static_cast<uint32_t>(x.y == q1) << 1 |
+               static_cast<uint32_t>(x.z == q1) << 2 | static_cast<uint32_t>(x.w == q1) << 3)
+              << (4 * g);
+    }
+    hits = (hits >> (slot & 3u)) & 0xFFu;  // the window, in slot order
+    while (hits) {
+      const int s = off + static_cast<int>((slot + (__ffs(hits) - 1)) & mask);
+      hits &= hits - 1u;
+      const uint32_t a2 = __ldg(tb.k2 + s);
+      const float lv = __ldg(tb.lp + s), bv = __ldg(tb.bo + s);
+      if (a2 == q2 && (q1 | a2) != 0u) {
+        f = true;
+        v += lv;
+        b += bv;
+      }
+    }
+  } else {
+    for (int p = 0; p < tb.n_probes; ++p) {
+      const int s = off + static_cast<int>((slot + p) & mask);
+      const uint32_t a1 = __ldg(tb.k1 + s), a2 = __ldg(tb.k2 + s);
+      if (a1 == q1 && a2 == q2 && (a1 | a2) != 0u) {
+        f = true;
+        v += __ldg(tb.lp + s);
+        b += __ldg(tb.bo + s);
+      }
     }
   }
   *found = f;
@@ -218,60 +373,67 @@ __device__ void probe(const Tables& tb, int k, uint32_t q1, uint32_t q2,
   *bo = b;
 }
 
-// Word LM: natural-log P(word | ring context) with Katz backoff, and the
-// effective token (the word, or <unk> when it is not a unigram).
-__device__ float word_score(const Tables& tb, int ring, uint32_t wh1,
-                            uint32_t wh2, const uint32_t* c1,
-                            const uint32_t* c2, uint32_t* eff1,
-                            uint32_t* eff2) {
-  bool f;
-  float v, bo;
-  probe(tb, 0, mix32(0u, wh1, M1), mix32(0u, wh2, M2), &f, &v, &bo);
-  const uint32_t e1 = f ? wh1 : UNK1, e2 = f ? wh2 : UNK2;
-  float score = 0.0f, bo_acc = 0.0f;
-  bool resolved = false;
-  const int top = min(tb.order - 1, ring);
-  for (int m = top; m >= 0; --m) {
-    uint32_t k1 = 0u, k2 = 0u;
-    for (int i = 0; i < m; ++i) {
-      k1 = mix32(k1, c1[ring - m + i], M1);
-      k2 = mix32(k2, c2[ring - m + i], M2);
-    }
-    probe(tb, m, mix32(k1, e1, M1), mix32(k2, e2, M2), &f, &v, &bo);
-    if (f && !resolved) score = bo_acc + v;
-    resolved = resolved || f;
-    if (m > 0) {
-      bool bf;
-      float bv, bbo;
-      probe(tb, m - 1, k1, k2, &bf, &bv, &bbo);
-      if (!resolved) bo_acc = bo_acc + (bf ? bbo : 0.0f);
+// The word LM (the XLA path's _word_lm_score): natural-log P(word | ring
+// context) with Katz backoff, where the word is <unk> when it is not a
+// unigram. Its probes of one frame are spread over threads (word_items):
+// for beam j, item 0 is the unigram of its partial word; items 1 + 2i and
+// 2 + 2i (i = 0..top) the order top - i lookup with the word and with
+// <unk>; items 3 + 2 top + i (i < top) the backoff of order top - i - 1.
+// Item it of beam j sits at it * W + j; the ring is c1[r * stride],
+// c2[r * stride], oldest first.
+__device__ void word_item(const Tables& tb, const int* meta, int ring, int top, int it,
+                          uint32_t wh1, uint32_t wh2, const uint32_t* c1, const uint32_t* c2,
+                          int stride, bool* f, float* v, float* bo) {
+  if (it == 0) {
+    probe(tb, meta, 0, mix32(0u, wh1, M1), mix32(0u, wh2, M2), f, v, bo);
+    return;
+  }
+  const bool backoff = it >= 3 + 2 * top;
+  const int m = backoff ? top - (it - 3 - 2 * top) : top - (it - 1) / 2;  // context words
+  uint32_t k1 = 0u, k2 = 0u;
+  for (int i = 0; i < m; ++i) {
+    k1 = mix32(k1, c1[(ring - m + i) * stride], M1);
+    k2 = mix32(k2, c2[(ring - m + i) * stride], M2);
+  }
+  if (backoff) {
+    probe(tb, meta, m - 1, k1, k2, f, v, bo);
+  } else {
+    const bool unk = ((it - 1) & 1) != 0;
+    probe(tb, meta, m, mix32(k1, unk ? UNK1 : wh1, M1), mix32(k2, unk ? UNK2 : wh2, M2), f, v,
+          bo);
+  }
+}
+
+// The word's score from the items' (found, logp, backoff) at
+// wf/wv/wb[it * W + j]: the Katz recursion, highest order first.
+__device__ float word_combine(const int* wf, const float* wv, const float* wb, int W, int top,
+                              int j) {
+  const int unk = wf[j] ? 0 : 1;
+  float bo_acc = 0.0f;
+  for (int i = 0; i <= top; ++i) {
+    const int it = (1 + 2 * i + unk) * W + j;
+    if (wf[it]) return bo_acc + wv[it];  // resolved: the lower orders change nothing
+    if (i < top) {
+      const int bt = (3 + 2 * top + i) * W + j;
+      bo_acc = bo_acc + (wf[bt] ? wb[bt] : 0.0f);
     }
   }
-  if (!resolved) score = bo_acc + WORD_OOV_NAT;
-  *eff1 = e1;
-  *eff2 = e2;
-  return score;
+  return bo_acc + WORD_OOV_NAT;
 }
 
 // Char LM: natural-log P(c | context) from a beam's context chains
-// ch[m] (hash of its last m chars) and step backoffs cbo[m].
-__device__ float char_score(const Tables& tb, const uint32_t* ch1,
-                            const uint32_t* ch2, const float* cbo, int c) {
-  float score = NEG, bo_acc = 0.0f;
-  bool resolved = false;
+// ch[m * W] (hash of its last m chars) and step backoffs cbo[m * W].
+__device__ float char_score(const Tables& tb, const int* meta, const uint32_t* ch1,
+                            const uint32_t* ch2, const float* cbo, int W, int c) {
+  float bo_acc = 0.0f;
   for (int m = tb.order - 1; m >= 0; --m) {
     bool f;
     float v, bo;
-    probe(tb, m, mix32(ch1[m], c, M1), mix32(ch2[m], c, M2), &f, &v, &bo);
-    if (f && !resolved) score = bo_acc + v;
-    resolved = resolved || f;
-    if (m > 0 && !resolved) bo_acc = bo_acc + cbo[m];
+    probe(tb, meta, m, mix32(ch1[m * W], c, M1), mix32(ch2[m * W], c, M2), &f, &v, &bo);
+    if (f) return bo_acc + v;  // resolved: the lower orders change nothing
+    if (m > 0) bo_acc = bo_acc + cbo[m * W];
   }
-  return resolved ? score : OOV_LOGP;
-}
-
-__device__ __forceinline__ bool better(float v, int i, float ov, int oi) {
-  return ov > v || (ov == v && oi < i);
+  return OOV_LOGP;
 }
 
 __device__ __forceinline__ void store_bp(void* out, int out8, size_t i, int v) {
@@ -281,20 +443,78 @@ __device__ __forceinline__ void store_bp(void* out, int out8, size_t i, int v) {
     static_cast<int*>(out)[i] = v;
 }
 
-template <int LM>
+// One count for `digit` (< 0: none) from every lane of the warp; the lanes
+// that share lane 0's digit add once, through the lowest of them. All 32
+// lanes call it.
+__device__ __forceinline__ void hist_add(int* hist, int digit, int lane) {
+  const int d0 = __shfl_sync(FULL, digit, 0);
+  const unsigned same = __ballot_sync(FULL, digit == d0);
+  if (digit < 0) return;
+  if (digit != d0)
+    atomicAdd(&hist[digit], 1);
+  else if (lane == __ffs(same) - 1)
+    atomicAdd(&hist[digit], __popc(same));
+}
+
+// Ends a phase: the block barrier, and with the timer on thread 0's span.
+template <bool TIMED>
+__device__ __forceinline__ void phase_end(long long* acc, long long* t_prev, int span) {
+  __syncthreads();
+  if (TIMED && threadIdx.x == 0) {
+    const long long now = clock64();
+    acc[span] += now - *t_prev;
+    *t_prev = now;
+    acc[SP_BARRIERS] += 1;
+  }
+}
+
+// Ends a span without a barrier (thread 0's own work).
+template <bool TIMED>
+__device__ __forceinline__ void span_end(long long* acc, long long* t_prev, int span) {
+  if (TIMED && threadIdx.x == 0) {
+    const long long now = clock64();
+    acc[span] += now - *t_prev;
+    *t_prev = now;
+  }
+}
+
+template <int LM, bool TIMED>
 __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem s;
-  carve(smem_raw, p.W, p.C, p.ring, &s);
+  __shared__ int hist[RADIX];
+  __shared__ float wmax[NWARPS];
+  __shared__ unsigned long long wsum[NWARPS];
+  __shared__ int pick[3];  // the radix digit, the count still needed, the bin taken whole
+
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int rt = THREADS - 1 - tid;  // beams count from the block's end
-  const int W = p.W, C = p.C, E = W * C, P = W + E, ring = p.ring;
+  const int rt = THREADS - 1 - tid;  // per-beam work counts from the block's end
+  const int W = p.W, C = p.C, E = W * C, P = W + E, ring = p.ring, k_ctx = p.k_ctx;
+  const int order = LM == LM_NONE ? 0 : p.tb.order;
   const int T = p.T;
   const int len = min(max(p.lengths[b], 0), T);
-  const uint64_t ctx_mask = (1ull << (CTX_SHIFT * p.ctx_len)) - 1ull;
+  const int HT = ht_size(W);
+  const int NW = (C + 31) / 32;  // words of an absorbed-extend mask a beam
+  const int wtop = LM == LM_WORD ? min(order - 1, ring) : 0;
+  const int step_j = THREADS / C, step_c = THREADS - step_j * C;
 
-  // ---- initial state (buffer 0) ----
+  unsigned char* work = p.work ? p.work + static_cast<size_t>(b) * p.work_stride : nullptr;
+  State s;
+  Pool q;
+  const size_t state_bytes = carve_state(p.place == PLACE_ALL ? work : smem_raw, W, C, ring,
+                                         k_ctx, order, &s);
+  unsigned char* pool_base = p.place == PLACE_SHARED ? smem_raw + state_bytes
+                             : p.place == PLACE_POOL ? work
+                                                     : work + state_bytes;
+  carve_pool(pool_base, W, C, LM != LM_NONE, &q);
+  const float* lp0 = p.lp + static_cast<size_t>(b) * T * C;
+
+  // ---- initial state (buffer 0), LM metadata, the first lp row ----
+  if (len > 0) load_row(s.lpb, lp0, C);
+  for (int k = tid; k < 3 * order; k += THREADS) s.meta[k] = p.tb.meta[k];
+  for (int k = tid; k < 2 * HT; k += THREADS) s.ht[k] = -1;
+  for (int k = tid; k < W * NW; k += THREADS) s.amask[k] = 0u;
+  for (int k = tid; k < RADIX; k += THREADS) hist[k] = 0;
   for (int j = tid; j < W; j += THREADS) {
     if (p.state_in) {
       auto f = [&](int k) { return p.state_in[(static_cast<size_t>(k) * p.B + b) * W + j]; };
@@ -305,10 +525,8 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       s.h2[j] = static_cast<uint32_t>(f(k++));
       s.last[j] = f(k++);
       if (LM != LM_NONE) s.lm[j] = __int_as_float(f(k++));
-      if (LM == LM_CHAR) {  // two fields: the low and the high 32 bits
-        const uint32_t lo = static_cast<uint32_t>(f(k++));
-        s.ctx[j] = static_cast<uint64_t>(lo) | (static_cast<uint64_t>(static_cast<uint32_t>(f(k++))) << 32);
-      }
+      if (LM == LM_CHAR)
+        for (int i = 0; i < k_ctx; ++i) s.ctx[i * W + j] = f(k++);
       if (LM == LM_WORD) {
         s.wh1[j] = static_cast<uint32_t>(f(k++));
         s.wh2[j] = static_cast<uint32_t>(f(k++));
@@ -322,7 +540,7 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       s.h1[j] = s.h2[j] = j == 0 ? 0u : static_cast<uint32_t>(j + 1);
       s.last[j] = -1;
       s.lm[j] = 0.0f;
-      s.ctx[j] = 0ull;
+      for (int i = 0; i < k_ctx; ++i) s.ctx[i * W + j] = 0;
       s.wh1[j] = s.wh2[j] = 0u;
       s.wlen[j] = 0;
       for (int r = 0; r < ring; ++r) {
@@ -332,212 +550,315 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
     }
   }
   __syncthreads();
+  for (int j = tid; j < W; j += THREADS) ht_insert(s.ht, HT, s.h1[j], j);  // frame 0's beams
+  cp_async_wait_all();
+  __syncthreads();
 
+  long long acc[K3_PARTS] = {};
+  long long t_prev = TIMED ? clock64() : 0;
+  const long long t_begin = t_prev;
   int cur = 0;
   for (int t = 0; t < len; ++t) {
     const int co = cur * W, no = (cur ^ 1) * W;  // state buffer offsets
-    const float* lprow = p.lp + (static_cast<size_t>(b) * T + t) * C;
-    for (int c = tid; c < C; c += THREADS) s.lp[c] = lprow[c];
-    __syncthreads();
+    const float* lp = s.lpb + (t & 1) * C;
+    if (t + 1 < len) load_row(s.lpb + ((t + 1) & 1) * C, lp0 + static_cast<size_t>(t + 1) * C, C);
 
-    // ---- 1. pruning (thread per class); per-beam sums and LM state ----
-    for (int c = tid; c < C; c += THREADS) {
-      const float lc = s.lp[c];
+    // ---- 1. pruning (a warp per class); per-beam sums, LM state, the
+    // stays' hash table (threads from the block's end) ----
+    for (int c = warp; c < C; c += NWARPS) {
+      const float lc = lp[c];
       int rank = 0;
       float excl = 0.0f;
-      for (int j = 0; j < C; ++j) {
-        const float lj = s.lp[j];
-        if (lj > lc || (lj == lc && j < c)) {
-          ++rank;
-          if (p.cutoff_prob < 1.0f) excl += expf(lj);
+      for (int j0 = 0; j0 < C; j0 += 32) {
+        const int j = j0 + lane;
+        const float lj = j < C ? lp[j] : 0.0f;
+        const bool bt = j < C && (lj > lc || (lj == lc && j < c));
+        rank += __popc(__ballot_sync(FULL, bt));
+        if (p.cutoff_prob < 1.0f && bt) excl += expf(lj);
+      }
+      if (p.cutoff_prob < 1.0f)
+        for (int o = 16; o > 0; o >>= 1) excl += __shfl_xor_sync(FULL, excl, o);
+      if (lane == 0) {
+        bool k = rank < p.top_n;
+        if (p.cutoff_prob < 1.0f) k = k && excl < p.cutoff_prob;
+        s.keep[c] = k && (lc > p.prune_logp || c == p.blank);
+      }
+    }
+    // each stay's one matching extend: its parent prefix (its hash
+    // unmixed by its last char) among the beams, then that parent's
+    // extend by the last char
+    const int* ht = s.ht + (t & 1) * HT;
+    for (int i = rt; i < W; i += THREADS) {
+      s.ptot[i] = lse(s.pb[co + i], s.pnb[co + i]);
+      const int l = s.last[co + i];
+      int me = -1;
+      if (l >= 0) {
+        const uint32_t a1 = unmix32(s.h1[co + i], l, M1_INV);
+        const uint32_t a2 = unmix32(s.h2[co + i], l, M2_INV);
+        for (int k = ht_home(a1, HT); ht[k] >= 0; k = (k + 1) & (HT - 1)) {
+          const int j = ht[k];
+          if (s.h1[co + j] == a1 && s.h2[co + j] == a2) {
+            me = j * C + l;
+            atomicOr(&s.amask[j * NW + (l >> 5)], 1u << (l & 31));
+          }
         }
       }
-      bool k = rank < p.top_n;
-      if (p.cutoff_prob < 1.0f) k = k && excl < p.cutoff_prob;
-      s.keep[c] = k && (lc > p.prune_logp || c == p.blank);
+      s.mext[i] = me;
     }
+    if (LM == LM_WORD) {  // the word LM's probes: a thread per (beam, item)
+      for (int u = rt; u < W * word_items(wtop); u += THREADS) {
+        const int it = u / W, j = u - it * W;
+        bool f;
+        float v, bo;
+        word_item(p.tb, s.meta, ring, wtop, it, s.wh1[co + j], s.wh2[co + j],
+                  s.wc1 + cur * ring * W + j, s.wc2 + cur * ring * W + j, W, &f, &v, &bo);
+        s.wf[u] = f;
+        s.wv[u] = v;
+        s.wb[u] = bo;
+      }
+    }
+    if (LM == LM_CHAR) {  // context chains: a thread per (beam, order)
+      const int* ctx = s.ctx + cur * k_ctx * W;
+      for (int u = rt; u < W * order; u += THREADS) {
+        const int m = u / W, j = u - m * W;
+        uint32_t a1 = 0u, a2 = 0u;
+        for (int i = k_ctx - m; i < k_ctx; ++i) {
+          const uint32_t x = static_cast<uint32_t>(ctx[i * W + j]);
+          a1 = mix32(a1, x, M1);
+          a2 = mix32(a2, x, M2);
+        }
+        s.ch1[m * W + j] = a1;
+        s.ch2[m * W + j] = a2;
+        float step = 0.0f;
+        if (m > 0) {
+          bool bf;
+          float bv, bbo;
+          probe(p.tb, s.meta, m - 1, a1, a2, &bf, &bv, &bbo);
+          step = bf ? bbo : 0.0f;
+        }
+        s.cbo[m * W + j] = step;
+      }
+    }
+    phase_end<TIMED>(acc, &t_prev, SP_PRUNE);
+
+    // ---- 2. stays; extends, each probing the stays' table once, with
+    // their pool scores and the first radix histogram ----
     for (int j = rt; j < W; j += THREADS) {
-      s.ptot[j] = lse(s.pb[co + j], s.pnb[co + j]);
-      if (LM == LM_WORD) {
-        uint32_t c1[MAX_RING], c2[MAX_RING];
-        for (int r = 0; r < ring; ++r) {
-          c1[r] = s.wc1[cur * ring * W + r * W + j];
-          c2[r] = s.wc2[cur * ring * W + r * W + j];
-        }
-        uint32_t e1, e2;
-        const float ws = word_score(p.tb, ring, s.wh1[co + j], s.wh2[co + j], c1, c2, &e1, &e2);
-        s.weff1[j] = e1;
-        s.weff2[j] = e2;
-        s.bonus[j] = s.wlen[co + j] > 0 ? __fadd_rn(__fmul_rn(p.alpha, ws), p.beta) : 0.0f;
-      }
-      if (LM == LM_CHAR) {
-        const uint64_t ctx = s.ctx[co + j];
-        for (int m = 0; m < p.tb.order; ++m) {
-          uint32_t a1 = 0u, a2 = 0u;
-          for (int i = p.ctx_len - m; i < p.ctx_len; ++i) {
-            const uint32_t x = static_cast<uint32_t>(ctx >> (CTX_SHIFT * (p.ctx_len - 1 - i))) & 63u;
-            a1 = mix32(a1, x, M1);
-            a2 = mix32(a2, x, M2);
-          }
-          s.ch1[j * MAX_ORDER + m] = a1;
-          s.ch2[j * MAX_ORDER + m] = a2;
-          float step = 0.0f;
-          if (m > 0) {
-            bool bf;
-            float bv, bbo;
-            probe(p.tb, m - 1, a1, a2, &bf, &bv, &bbo);
-            step = bf ? bbo : 0.0f;
-          }
-          s.cbo[j * MAX_ORDER + m] = step;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- 2. stays (thread per beam) and extends (thread per (j, c)) ----
-    for (int j = tid; j < W; j += THREADS) {
-      s.spb[j] = s.keep[p.blank] ? s.ptot[j] + s.lp[p.blank] : NEG;
+      s.spb[j] = s.keep[p.blank] ? s.ptot[j] + lp[p.blank] : NEG;
       const int l = s.last[co + j];
-      s.spnb[j] = l >= 0 && s.keep[l] ? s.pnb[co + j] + s.lp[l] : NEG;
+      s.spnb[j] = l >= 0 && s.keep[l] ? s.pnb[co + j] + lp[l] : NEG;
     }
-    float lmax = PICKED;  // below every extend score (>= NEG)
-    for (int e = tid; e < E; e += THREADS) {
-      const int j = e / C, c = e - j * C;
-      const float base = s.last[co + j] == c ? s.pb[co + j] : s.ptot[j];
-      const float v = (c == p.blank || !s.keep[c]) ? NEG : base + s.lp[c];
-      s.ext[e] = v;
-      lmax = fmaxf(lmax, v);
-      const uint32_t e1 = mix32(s.h1[co + j], c, M1), e2 = mix32(s.h2[co + j], c, M2);
-      bool m = false;
-      for (int i = 0; i < W; ++i) m = m || (s.h1[co + i] == e1 && s.h2[co + i] == e2);
-      s.flag[e] = m;
-      if (LM == LM_CHAR) {
-        const float sc = char_score(p.tb, s.ch1 + j * MAX_ORDER, s.ch2 + j * MAX_ORDER,
-                                    s.cbo + j * MAX_ORDER, c);
-        float add = __fmul_rn(p.alpha, sc);
-        if (p.has_beta) add = __fadd_rn(add, c == p.space ? p.beta : 0.0f);
-        s.extlm[e] = __fadd_rn(s.lm[co + j], add);
+    float lmax = -3.0e38f;  // below every extend score (>= NEG)
+    int j = tid / C, c = tid - j * C;  // e = j * C + c, stepped by THREADS
+    for (int e0 = 0; e0 < E; e0 += THREADS, j += step_j, c += step_c) {
+      if (c >= C) {
+        c -= C;
+        ++j;
       }
-      if (LM == LM_WORD) s.extlm[e] = s.lm[co + j] + (c == p.space ? s.bonus[j] : 0.0f);
+      const int e = e0 + tid;
+      int digit = -1;
+      if (e < E) {
+        const float base = s.last[co + j] == c ? s.pb[co + j] : s.ptot[j];
+        const float v = (c == p.blank || !s.keep[c]) ? NEG : base + lp[c];
+        lmax = fmaxf(lmax, v);
+        const bool m = (s.amask[j * NW + (c >> 5)] >> (c & 31)) & 1u;  // absorbed
+        const float ev = m ? NEG : v;
+        q.extv[e] = ev;
+        float sc = fmaxf(ev, NEG);  // lse(NEG, ev), exactly, in f32
+        if (LM == LM_CHAR) {
+          // an extend at NEG scores NEG whatever its LM term and is never
+          // selected (the dead stays, first in the pool, win that tie), so
+          // its probes are skipped
+          float el = s.lm[co + j];
+          if (ev > NEG) {
+            const float csc = char_score(p.tb, s.meta, s.ch1 + j, s.ch2 + j, s.cbo + j, W, c);
+            float add = __fmul_rn(p.alpha, csc);
+            if (p.has_beta) add = __fadd_rn(add, c == p.space ? p.beta : 0.0f);
+            el = __fadd_rn(s.lm[co + j], add);
+          }
+          q.extlm[e] = el;
+          sc = sc + el;
+        }
+        if (LM == LM_WORD) {
+          float bonus = 0.0f;  // the word's close, on the space extend only
+          if (c == p.space && s.wlen[co + j] > 0)
+            bonus = __fadd_rn(__fmul_rn(p.alpha, word_combine(s.wf, s.wv, s.wb, W, wtop, j)),
+                              p.beta);
+          const float el = s.lm[co + j] + bonus;
+          q.extlm[e] = el;
+          sc = sc + el;
+        }
+        q.score[W + e] = sc;
+        digit = static_cast<int>(score_key(sc) >> 24);
+      }
+      hist_add(hist, digit, lane);
     }
-    for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
-    if (lane == 0) s.wmax[warp] = lmax;
-    __syncthreads();
+    for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(FULL, lmax, o));
+    if (lane == 0) wmax[warp] = lmax;
+    phase_end<TIMED>(acc, &t_prev, SP_EXTEND);
 
-    // ---- 3. absorption: one warp per stay scans the extends ----
-    float kmax = s.wmax[0];
-    for (int w = 1; w < NWARPS; ++w) kmax = fmaxf(kmax, s.wmax[w]);
+    // ---- 3. absorption: each stay takes its matching extends; its pool
+    // score; the stays' table emptied for the next frame ----
+    float kmax = wmax[0];
+    for (int w = 1; w < NWARPS; ++w) kmax = fmaxf(kmax, wmax[w]);
     kmax = fmaxf(kmax, -1e20f);
-    for (int i = warp; i < W; i += NWARPS) {
-      const uint32_t a1 = s.h1[co + i], a2 = s.h2[co + i];
-      float acc = 0.0f, bv = NEG;
-      int bi = 0;
-      for (int e = lane; e < E; e += 32) {
-        const int j = e / C, c = e - j * C;
-        if (mix32(s.h1[co + j], c, M1) == a1 && mix32(s.h2[co + j], c, M2) == a2) {
-          const float v = s.ext[e];
-          if (v > NEG / 2) acc += expf(v - kmax);
-          if (better(bv, bi, v, e)) {
+    for (int k = tid; k < HT; k += THREADS) s.ht[(t & 1) * HT + k] = -1;
+    for (int k = tid; k < W * NW; k += THREADS) s.amask[k] = 0u;
+    for (int i0 = 0; i0 < W; i0 += THREADS) {
+      const int i = i0 + tid;
+      int digit = -1;
+      if (i < W) {
+        const int e = s.mext[i];
+        float acc_e = 0.0f, bv = NEG;
+        int bi = 0;
+        if (e >= 0) {  // extend e, unmasked, as the extend pass made it
+          const int j = e / C, c = e - j * C;
+          const float base = s.last[co + j] == c ? s.pb[co + j] : s.ptot[j];
+          const float v = (c == p.blank || !s.keep[c]) ? NEG : base + lp[c];
+          if (v > NEG / 2) acc_e = expf(v - kmax);
+          if (v > NEG) {  // better(NEG, 0, v, e)
             bv = v;
             bi = e;
           }
         }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (better(bv, bi, ov, oi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) {
-        const float alog = acc > 0.0f ? logf(acc) + kmax : NEG;
+        const float alog = acc_e > 0.0f ? logf(acc_e) + kmax : NEG;
         const float pre = lse(s.spb[i], s.spnb[i]);
-        s.spnb[i] = lse(s.spnb[i], alog);
+        const float spnb = lse(s.spnb[i], alog);
+        s.spnb[i] = spnb;
         const bool take = bv > pre;
         s.spar[i] = take ? bi / C : i;
         s.snew[i] = take ? bi % C : -1;
+        float sc = lse(s.spb[i], spnb);
+        if (LM != LM_NONE) sc = sc + s.lm[co + i];
+        q.score[i] = sc;
+        digit = static_cast<int>(score_key(sc) >> 24);
       }
+      hist_add(hist, digit, lane);
     }
-    __syncthreads();
+    phase_end<TIMED>(acc, &t_prev, SP_ABSORB);
 
-    // ---- 4. pool scores ----
-    for (int q = tid; q < P; q += THREADS) {
-      float sc;
-      if (q < W) {
-        sc = lse(s.spb[q], s.spnb[q]);
-        if (LM != LM_NONE) sc = sc + s.lm[co + q];
-      } else {
-        const int e = q - W;
-        sc = lse(NEG, s.flag[e] ? NEG : s.ext[e]);
-        if (LM != LM_NONE) sc = sc + s.extlm[e];
-      }
-      s.score[q] = sc;
-    }
-    __syncthreads();
-
-    // ---- 5. top-W: warp 0, each lane owning pool entries lane + 32 k ----
-    if (warp == 0) {
-      float lv = PICKED;
-      int li = P;
-      for (int q = lane; q < P; q += 32)
-        if (better(lv, li, s.score[q], q)) {
-          lv = s.score[q];
-          li = q;
+    // ---- 4. top-W: radix select of the W-th key, 8 bits a pass ----
+    uint32_t prefix = 0u, pmask = 0u;
+    int need = W;
+    for (int pass = 0; pass < 4; ++pass) {
+      const int shift = 24 - 8 * pass;
+      if (pass > 0) {
+        for (int q0 = 0; q0 < P; q0 += THREADS) {
+          const int qi = q0 + tid;
+          int digit = -1;
+          if (qi < P) {
+            const uint32_t key = score_key(q.score[qi]);
+            if ((key & pmask) == prefix) digit = static_cast<int>((key >> shift) & 255u);
+          }
+          hist_add(hist, digit, lane);
         }
-      for (int k = 0; k < W; ++k) {
-        float v = lv;
-        int i = li;
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-          if (better(v, i, ov, oi)) {
-            v = ov;
-            i = oi;
+        phase_end<TIMED>(acc, &t_prev, SP_TOPW);
+      }
+      if (warp == 0) {  // lane l holds bins 255 - 8l down to 248 - 8l
+        int cnt[8], sum = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          cnt[i] = hist[255 - 8 * lane - i];
+          hist[255 - 8 * lane - i] = 0;
+          sum += cnt[i];
+        }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int n = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += n;
+        }
+        int run = incl - sum;
+        if (run < need && incl >= need) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (run < need && run + cnt[i] >= need) {
+              pick[0] = 255 - 8 * lane - i;
+              pick[1] = need - run;
+              pick[2] = cnt[i] == need - run;
+            }
+            run += cnt[i];
           }
         }
-        if (lane == 0) s.sel[k] = i;
-        if (i < P && (i & 31) == lane) {  // the owner masks it and rescans
-          s.score[i] = PICKED;
-          lv = PICKED;
-          li = P;
-          for (int q = lane; q < P; q += 32)
-            if (s.score[q] > PICKED && better(lv, li, s.score[q], q)) {
-              lv = s.score[q];
-              li = q;
-            }
+      }
+      phase_end<TIMED>(acc, &t_prev, SP_TOPW);
+      prefix |= static_cast<uint32_t>(pick[0]) << shift;
+      pmask |= 255u << shift;
+      need = pick[1];
+      if (pick[2]) break;  // the bin is taken whole
+    }
+    // survivors in pool-index order: the keys above the threshold, then
+    // the first `need` equal to it; one block scan of (above, equal)
+    {
+      const int chunk = (P + THREADS - 1) / THREADS;
+      const int q0 = min(P, tid * chunk), q1 = min(P, q0 + chunk);
+      unsigned long long mine = 0ull;  // above << 32 | equal
+      for (int qi = q0; qi < q1; ++qi) {
+        const uint32_t km = score_key(q.score[qi]) & pmask;
+        mine += km > prefix ? (1ull << 32) : (km == prefix ? 1ull : 0ull);
+      }
+      unsigned long long incl = mine;
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long n = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += n;
+      }
+      if (lane == 31) wsum[warp] = incl;
+      __syncthreads();
+      unsigned long long before = incl - mine;
+      for (int w = 0; w < warp; ++w) before += wsum[w];
+      int pos = static_cast<int>(before >> 32);
+      int eq = static_cast<int>(before & 0xffffffffull);
+      pos += min(eq, need);
+      for (int qi = q0; qi < q1; ++qi) {
+        const uint32_t key = score_key(q.score[qi]);
+        const uint32_t km = key & pmask;
+        bool in = km > prefix;
+        if (km == prefix) in = eq++ < need;
+        if (in) {
+          s.surv[pos] = qi;
+          s.survk[pos] = key;
+          ++pos;
         }
       }
     }
-    __syncthreads();
+    phase_end<TIMED>(acc, &t_prev, SP_TOPW);
+    if (TIMED && tid == 0) acc[SP_BARRIERS] += 1;  // the scan's barrier
 
-    // ---- 6. survivors -> next state; backpointers out ----
+    // ---- 5. survivors: each takes the slot of its rank; next state;
+    // backpointers out ----
     const size_t out0 = (static_cast<size_t>(b) * T + t) * W;
     for (int k = tid; k < W; k += THREADS) {
-      const int q = s.sel[k];
+      const uint32_t kk = s.survk[k];
+      int r = 0;
+      for (int j = 0; j < W; ++j) {
+        const uint32_t kj = s.survk[j];
+        r += kj > kk || (kj == kk && j < k);
+      }
+      const int qi = s.surv[k];
       int par, nc;
-      if (q < W) {
-        s.pb[no + k] = s.spb[q];
-        s.pnb[no + k] = s.spnb[q];
-        s.h1[no + k] = s.h1[co + q];
-        s.h2[no + k] = s.h2[co + q];
-        s.last[no + k] = s.last[co + q];
-        if (LM != LM_NONE) s.lm[no + k] = s.lm[co + q];
-        if (LM == LM_CHAR) s.ctx[no + k] = s.ctx[co + q];
-        par = s.spar[q];
-        nc = s.snew[q];
-      } else {
-        const int e = q - W, j = e / C, c = e - j * C;
-        s.pb[no + k] = NEG;
-        s.pnb[no + k] = s.flag[e] ? NEG : s.ext[e];
-        s.h1[no + k] = mix32(s.h1[co + j], c, M1);
-        s.h2[no + k] = mix32(s.h2[co + j], c, M2);
-        s.last[no + k] = c;
-        if (LM != LM_NONE) s.lm[no + k] = s.extlm[e];
+      if (qi < W) {
+        s.pb[no + r] = s.spb[qi];
+        s.pnb[no + r] = s.spnb[qi];
+        s.h1[no + r] = s.h1[co + qi];
+        s.h2[no + r] = s.h2[co + qi];
+        s.last[no + r] = s.last[co + qi];
+        if (LM != LM_NONE) s.lm[no + r] = s.lm[co + qi];
         if (LM == LM_CHAR)
-          s.ctx[no + k] = ((s.ctx[co + j] << CTX_SHIFT) | static_cast<uint64_t>(c)) & ctx_mask;
+          for (int i = 0; i < k_ctx; ++i)
+            s.ctx[((cur ^ 1) * k_ctx + i) * W + r] = s.ctx[(cur * k_ctx + i) * W + qi];
+        par = s.spar[qi];
+        nc = s.snew[qi];
+      } else {
+        const int e = qi - W, j = e / C, c = e - j * C;
+        s.pb[no + r] = NEG;
+        s.pnb[no + r] = q.extv[e];
+        s.h1[no + r] = mix32(s.h1[co + j], c, M1);
+        s.h2[no + r] = mix32(s.h2[co + j], c, M2);
+        s.last[no + r] = c;
+        if (LM != LM_NONE) s.lm[no + r] = q.extlm[e];
+        if (LM == LM_CHAR)
+          for (int i = 0; i < k_ctx; ++i)
+            s.ctx[((cur ^ 1) * k_ctx + i) * W + r] =
+                i + 1 < k_ctx ? s.ctx[(cur * k_ctx + i + 1) * W + j] : c;
         par = j;
         nc = c;
       }
@@ -547,23 +868,35 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
         const int pw = s.wlen[co + par];
         const bool ext = nc >= 0, is_space = ext && nc == p.space;
         const bool closes = is_space && pw > 0, grows = ext && nc != p.space;
-        for (int r = 0; r < ring; ++r) {
-          const int src = cur * ring * W + r * W + par, dst = (cur ^ 1) * ring * W + r * W + k;
-          const bool newest = r + 1 == ring;
-          s.wc1[dst] = closes ? (newest ? s.weff1[par] : s.wc1[src + W]) : s.wc1[src];
-          s.wc2[dst] = closes ? (newest ? s.weff2[par] : s.wc2[src + W]) : s.wc2[src];
+        for (int rr = 0; rr < ring; ++rr) {
+          const int src = cur * ring * W + rr * W + par, dst = (cur ^ 1) * ring * W + rr * W + r;
+          const bool newest = rr + 1 == ring;
+          // the token that enters the ring: the word, or <unk> when it is
+          // not a unigram
+          const uint32_t e1 = s.wf[par] ? s.wh1[co + par] : UNK1;
+          const uint32_t e2 = s.wf[par] ? s.wh2[co + par] : UNK2;
+          s.wc1[dst] = closes ? (newest ? e1 : s.wc1[src + W]) : s.wc1[src];
+          s.wc2[dst] = closes ? (newest ? e2 : s.wc2[src + W]) : s.wc2[src];
         }
         const uint32_t u = static_cast<uint32_t>(nc > 0 ? nc : 0);
         const uint32_t p1 = s.wh1[co + par], p2 = s.wh2[co + par];
-        s.wh1[no + k] = is_space ? 0u : (grows ? mix32(p1, u, M1) : p1);
-        s.wh2[no + k] = is_space ? 0u : (grows ? mix32(p2, u, M2) : p2);
-        s.wlen[no + k] = is_space ? 0 : (grows ? pw + 1 : pw);
+        s.wh1[no + r] = is_space ? 0u : (grows ? mix32(p1, u, M1) : p1);
+        s.wh2[no + r] = is_space ? 0u : (grows ? mix32(p2, u, M2) : p2);
+        s.wlen[no + r] = is_space ? 0 : (grows ? pw + 1 : pw);
       }
-      store_bp(p.parents, p.out8, out0 + k, par);
-      store_bp(p.chars, p.out8, out0 + k, nc);
+      ht_insert(s.ht + ((t + 1) & 1) * HT, HT, s.h1[no + r], r);  // the next frame's beams
+      store_bp(p.parents, p.out8, out0 + r, par);
+      store_bp(p.chars, p.out8, out0 + r, nc);
     }
-    __syncthreads();
+    span_end<TIMED>(acc, &t_prev, SP_SURVIVE);
+    cp_async_wait_all();  // the next frame's row
+    phase_end<TIMED>(acc, &t_prev, SP_ROW);
     cur ^= 1;
+  }
+  if (TIMED && tid == 0) {
+    acc[SP_LOOP] = clock64() - t_begin;
+    acc[SP_FRAMES] = len;
+    for (int k = 0; k < K3_PARTS; ++k) p.timer[static_cast<size_t>(b) * K3_PARTS + k] = acc[k];
   }
 
   // ---- frozen frames: identity backpointers ----
@@ -576,6 +909,19 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
 
   // ---- end: state out (before the close), scores ----
   const int co = cur * W;
+  if (LM == LM_WORD) {  // the close of each final partial word
+    for (int u = tid; u < W * word_items(wtop); u += THREADS) {
+      const int it = u / W, j = u - it * W;
+      bool f;
+      float v, bo;
+      word_item(p.tb, s.meta, ring, wtop, it, s.wh1[co + j], s.wh2[co + j],
+                s.wc1 + cur * ring * W + j, s.wc2 + cur * ring * W + j, W, &f, &v, &bo);
+      s.wf[u] = f;
+      s.wv[u] = v;
+      s.wb[u] = bo;
+    }
+    __syncthreads();
+  }
   for (int j = tid; j < W; j += THREADS) {
     if (p.state_out) {
       auto put = [&](int k, int v) {
@@ -588,10 +934,8 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
       put(k++, static_cast<int>(s.h2[co + j]));
       put(k++, s.last[co + j]);
       if (LM != LM_NONE) put(k++, __float_as_int(s.lm[co + j]));
-      if (LM == LM_CHAR) {
-        put(k++, static_cast<int>(static_cast<uint32_t>(s.ctx[co + j])));
-        put(k++, static_cast<int>(static_cast<uint32_t>(s.ctx[co + j] >> 32)));
-      }
+      if (LM == LM_CHAR)
+        for (int i = 0; i < k_ctx; ++i) put(k++, s.ctx[(cur * k_ctx + i) * W + j]);
       if (LM == LM_WORD) {
         put(k++, static_cast<int>(s.wh1[co + j]));
         put(k++, static_cast<int>(s.wh2[co + j]));
@@ -602,44 +946,85 @@ __global__ void __launch_bounds__(THREADS) beam_kernel(const Params p) {
     }
     float sc = lse(s.pb[co + j], s.pnb[co + j]);
     if (LM != LM_NONE) sc = sc + s.lm[co + j];
-    if (LM == LM_WORD) {
-      uint32_t c1[MAX_RING], c2[MAX_RING], e1, e2;
-      for (int r = 0; r < ring; ++r) {
-        c1[r] = s.wc1[cur * ring * W + r * W + j];
-        c2[r] = s.wc2[cur * ring * W + r * W + j];
-      }
-      const float ws = word_score(p.tb, ring, s.wh1[co + j], s.wh2[co + j], c1, c2, &e1, &e2);
-      sc = sc + (s.wlen[co + j] > 0 ? __fadd_rn(__fmul_rn(p.alpha, ws), p.beta) : 0.0f);
-    }
+    if (LM == LM_WORD)
+      sc = sc + (s.wlen[co + j] > 0
+                     ? __fadd_rn(__fmul_rn(p.alpha, word_combine(s.wf, s.wv, s.wb, W, wtop, j)),
+                                 p.beta)
+                     : 0.0f);
     p.scores[static_cast<size_t>(b) * W + j] = sc;
   }
 }
 
+template <int LM, bool TIMED>
+int launch_as(const Params& p, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      beam_kernel<LM, TIMED>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  beam_kernel<LM, TIMED><<<p.B, THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int LM>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      beam_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  return p.timer ? launch_as<LM, true>(p, smem, stream) : launch_as<LM, false>(p, smem, stream);
+}
+
+// Sizes of the two regions and where they go: the state and the pool in
+// shared memory when both fit beside the kernel's static shared memory,
+// else the pool in the workspace, else both; never below `min_place`.
+int plan(int W, int C, int ring, int k_ctx, int order, int lm_mode, int min_place, int* place,
+         size_t* dyn_smem, size_t* work_bytes) {
+  State s;
+  Pool q;
+  const size_t state = carve_state(nullptr, W, C, ring, k_ctx, order, &s);
+  const size_t pool = carve_pool(nullptr, W, C, lm_mode != LM_NONE, &q);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes fa{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, beam_kernel<LM_WORD, true>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  beam_kernel<LM><<<p.B, THREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const size_t avail = static_cast<size_t>(optin) > fa.sharedSizeBytes
+                           ? static_cast<size_t>(optin) - fa.sharedSizeBytes : 0;
+  int pl = state + pool <= avail ? PLACE_SHARED : state <= avail ? PLACE_POOL : PLACE_ALL;
+  pl = pl > min_place ? pl : min_place;
+  *place = pl;
+  *dyn_smem = pl == PLACE_SHARED ? state + pool : pl == PLACE_POOL ? state : 0;
+  const size_t work = pl == PLACE_SHARED ? 0 : pl == PLACE_POOL ? pool : state + pool;
+  *work_bytes = (work + 255) & ~static_cast<size_t>(255);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Where K3 puts its arrays for this configuration (*place: 0 all in shared
+// memory, 1 the pool in the workspace, 2 the state too; never below
+// min_place) and the workspace it needs a block, in bytes (the wrapper
+// allocates B times that). Returns a CUDA error code.
+int tpuasr_beam_plan(int W, int C, int ring, int k_ctx, int order, int lm_mode, int min_place,
+                     int* place, long long* work_bytes) {
+  size_t dyn = 0, work = 0;
+  const int err = plan(W, C, ring, k_ctx, order, lm_mode, min_place, place, &dyn, &work);
+  *work_bytes = static_cast<long long>(work);
+  return err;
+}
+
 // Returns cudaGetLastError() after the launch (0 = success), or
-// cudaErrorInvalidValue for shapes or LM settings K3 does not take.
-int tpuasr_beam_scan(const float* lp, const int* lengths, int B, int T, int C,
-                     int W, int blank, int top_n, float cutoff_prob,
-                     float prune_logp, int lm_mode, const uint32_t* k1,
-                     const uint32_t* k2, const float* tlp, const float* tbo,
-                     const int* meta, int order, int n_probes, float alpha,
-                     float beta, int space, int has_beta, int ring,
-                     const int* state_in, int* state_out, void* parents,
-                     void* chars, float* scores, int out8, void* stream) {
+// cudaErrorInvalidValue for arguments K3 does not take (a bad shape, class
+// id or LM setting, or a workspace smaller than tpuasr_beam_plan's).
+int tpuasr_beam_scan(const float* lp, const int* lengths, int B, int T, int C, int W,
+                     int blank, int top_n, float cutoff_prob, float prune_logp, int lm_mode,
+                     const uint32_t* k1, const uint32_t* k2, const float* tlp,
+                     const float* tbo, const int* meta, int order, int n_probes, float alpha,
+                     float beta, int space, int has_beta, int ring, int k_ctx,
+                     const int* state_in, int* state_out, void* parents, void* chars,
+                     float* scores, int out8, int min_place, void* work, long long work_stride,
+                     long long* timer, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (W < 1 || W > MAX_W || C < 1 || C > MAX_C || B < 0 || T < 0) return invalid;
+  if (W < 1 || C < 1 || B < 0 || T < 0) return invalid;
   if (blank < 0 || blank >= C || lm_mode < LM_NONE || lm_mode > LM_WORD) return invalid;
   Params p{};
   p.lp = lp;
@@ -657,58 +1042,42 @@ int tpuasr_beam_scan(const float* lp, const int* lengths, int B, int T, int C,
   p.space = space;
   p.has_beta = has_beta;
   p.ring = lm_mode == LM_WORD ? ring : 0;
+  p.k_ctx = lm_mode == LM_CHAR ? k_ctx : 0;
   p.state_in = state_in;
   p.state_out = state_out;
   p.parents = parents;
   p.chars = chars;
   p.scores = scores;
   p.out8 = out8;
+  p.timer = timer;
   if (lm_mode != LM_NONE) {
-    if (order < 1 || order > MAX_ORDER || n_probes < 1 || meta == nullptr) return invalid;
-    if (lm_mode == LM_CHAR && (order > MAX_CHAR_ORDER || C > (1 << CTX_SHIFT))) return invalid;
-    if (lm_mode == LM_WORD && order > MAX_WORD_ORDER) return invalid;
-    if (lm_mode == LM_WORD && (ring < 1 || ring > MAX_RING || space < 0 || space >= C))
-      return invalid;
+    if (order < 1 || n_probes < 1 || meta == nullptr) return invalid;
+    if (lm_mode == LM_WORD && (ring < 1 || space < 0 || space >= C)) return invalid;
+    if (lm_mode == LM_CHAR && k_ctx < 1) return invalid;
     p.tb.k1 = k1;
     p.tb.k2 = k2;
     p.tb.lp = tlp;
     p.tb.bo = tbo;
+    p.tb.meta = meta;
     p.tb.order = order;
     p.tb.n_probes = n_probes;
-    for (int k = 0; k < order; ++k) {
-      p.tb.off[k] = meta[3 * k];
-      p.tb.cap[k] = meta[3 * k + 1];
-      p.tb.salt[k] = static_cast<uint32_t>(meta[3 * k + 2]);
-      const int cap = p.tb.cap[k];
-      if (cap < n_probes || (cap & (cap - 1)) != 0) return invalid;
-    }
-    p.ctx_len = lm_mode == LM_CHAR ? (order > 2 ? order - 1 : 1) : 0;
   }
-  if (B == 0) return 0;
-  Smem s;
-  const size_t smem = carve(nullptr, W, C, p.ring, &s);
+  size_t dyn = 0, need = 0;
+  const int err = plan(W, C, p.ring, p.k_ctx, lm_mode == LM_NONE ? 0 : order, lm_mode,
+                       min_place, &p.place, &dyn, &need);
+  if (err != 0 || B == 0) return err;
+  if (need > 0 && (work == nullptr || static_cast<size_t>(work_stride) < need)) return invalid;
+  p.work = static_cast<unsigned char*>(work);
+  p.work_stride = static_cast<size_t>(work_stride);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (lm_mode) {
     case LM_CHAR:
-      return launch<LM_CHAR>(p, smem, st);
+      return launch<LM_CHAR>(p, dyn, st);
     case LM_WORD:
-      return launch<LM_WORD>(p, smem, st);
+      return launch<LM_WORD>(p, dyn, st);
     default:
-      return launch<LM_NONE>(p, smem, st);
+      return launch<LM_NONE>(p, dyn, st);
   }
-}
-
-// K3's dynamic shared memory for (W, C, ring) in *bytes and this card's
-// opt-in limit a block in *optin: K3 takes the shape when bytes <= optin
-// (ops/beam.py asks before it launches). Returns a CUDA error code.
-int tpuasr_beam_smem(int W, int C, int ring, int* bytes, int* optin) {
-  Smem s;
-  *bytes = static_cast<int>(carve(nullptr, W, C, ring, &s));
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return static_cast<int>(err);
 }
 
 const char* tpuasr_cuda_error_string(int err) {
