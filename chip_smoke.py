@@ -25,7 +25,13 @@ non-zero without printing a result:
                (cuDNN nn.GRU forward, its backward, F.ctc_loss; timed
                only as yardsticks) beside the bound computed from the
                shapes: K1f (BiGRU forward), K1b (BiGRU backward), K2a
-               and K2b (CTC alpha and beta). Then K4f and K4b (BiLSTM
+               and K2b (CTC alpha and beta: through the loss at both
+               train buckets, their own outputs there and at S=5001, T=1
+               and a frame mask that is not a prefix, each twice for bit
+               equality; timed with the launches queued behind a
+               torch.cuda._sleep, time_queued, at T'=251 and 826), then
+               ctc_split: their step split (clock64: inputs, lse3,
+               stores, exchange) at both buckets. Then K4f and K4b (BiLSTM
                forward, ys and cs, and backward) and K5f and K5b (the
                gate-major BiGRU) the same way at B=32, H=800, D=2, bf16,
                T'=251 and 826, and at the edges T=1 with B=1, D=1, f32
@@ -138,10 +144,11 @@ moves flips one ulp of the output). Through the whole autograd function
 error <= 1e-4 in f32, <= 2e-2 in bf16 (the forward's bf16 h differences
 enter the recomputed gates).
 CTC kernels vs plain: per-utterance loss rel <= 1e-5 and dL/dlogits
-max-abs <= 2e-4 (tests/test_pallas_ctc.py's tolerances; the kernels
-sum the same exponentials in the same order, so only the exp/log
-implementations' last bits differ). F.ctc_loss, a third opinion on
-feasible rows: loss rel <= 1e-4 (its own log-space order).
+max-abs <= 2e-4, alphas rel <= 1e-5 on live cells, dL/demit max-abs <=
+2e-4 (tests/test_pallas_ctc.py's tolerances; the kernels run the plain
+version's operations in its order on the same card's expf and logf, so
+they agree bit for bit). F.ctc_loss, a third opinion on feasible rows:
+loss rel <= 1e-4 (its own log-space order).
 One full-width bf16 train step, kernels vs plain versions on the same
 weights and batch: loss rel <= 1e-2 and each parameter's gradient
 relative norm error <= 5e-2, because bf16 activations (h rounded every
@@ -215,6 +222,38 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_queued(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean milliseconds per call, by CUDA events around ``iters`` calls
+    queued ahead of the card: the stream first sleeps
+    (``torch.cuda._sleep``, counted at 2 GHz, above the card's clock) for
+    twice the host's time for ``iters`` calls, so the events time the
+    card and not the host's launch overhead. The start event must still
+    be pending when the last call is queued, or the sleep is doubled and
+    the timing taken again."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for attempt in range(4):
+        torch.cuda._sleep(int((2 * host_s + 1e-3) * 2e9 * 2 ** attempt))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+    raise RuntimeError("time_queued: the card drained the queue before the host filled it")
 
 
 # ------------------------------------------------------------------ kernel
@@ -795,18 +834,23 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES + FWD_
              "bigru2_bwd": first["dg"]["max_abs_err"]}, timings)
 
 
+CTC_SHAPES = ((251, 130), (826, 418))  # (T', label cap): the 5 s and 16.5 s buckets, S 261, 837
+
+
 def ctc_case(device, b=32, t=251, c=44, l_cap=130, seed=3):
-    """Logits (B, T, C) f32 and padded labels at the train path's 5 s
-    bucket shape (S = 2 * 130 + 1 = 261): ragged frames and labels, row
-    1 an empty label, row 2 infeasible (50 labels in 20 frames), row 3 a
-    padding row of 0 frames."""
+    """Logits (B, T, C) f32 and padded labels at a train bucket's shape
+    (the 5 s bucket: S = 2 * 130 + 1 = 261): ragged frames and labels (up
+    to 47% of the cap, 60 at the 5 s bucket), row 1 an empty label, row 2
+    infeasible (50 labels in 20 frames), row 3 a padding row of 0
+    frames."""
     import torch
 
     rng = np.random.RandomState(seed)
     logits = rng.standard_normal((b, t, c)).astype(np.float32) * 2.0
     frames = rng.randint(t // 2, t + 1, size=b)
-    n_lab = rng.randint(5, 61, size=b)
-    frames[0], n_lab[0] = t, 60
+    top = int(round(0.47 * l_cap))
+    n_lab = rng.randint(5, top + 1, size=b)
+    frames[0], n_lab[0] = t, top
     n_lab[1] = 0
     frames[2], n_lab[2] = 20, 50
     frames[3] = 0
@@ -816,11 +860,71 @@ def ctc_case(device, b=32, t=251, c=44, l_cap=130, seed=3):
     return [torch.from_numpy(a).to(device) for a in (logits, frames, labels, n_lab)]
 
 
+def ctc_inputs(logits, frames, labels, n_lab) -> dict:
+    """The CTC kernels' inputs for a ``ctc_case``, built as ``ctc_loss``
+    builds them (f32, contiguous): emit (T, B, S), allow_skip, valid_s,
+    init_mask, end_mask (B, S), frame_valid (T, B)."""
+    import torch
+
+    from tpuasr_torch.ctc.loss import _emissions, _extended
+    from tpuasr_torch.ops.ctc import LOG_EPS
+
+    dev = logits.device
+    t = logits.shape[1]
+    z, s_idx, valid_s, allow_skip = _extended(labels, n_lab, 0)
+    init = torch.full(z.shape, LOG_EPS, device=dev)
+    init[:, 0] = 0.0
+    init[:, 1] = torch.where(n_lab > 0, 0.0, LOG_EPS)
+    end = 2 * n_lab
+    end_mask = (s_idx == end[:, None]) | ((s_idx == (end - 1).clamp(min=0)[:, None])
+                                         & (n_lab > 0)[:, None])
+    fv = torch.arange(t, device=dev)[:, None] < frames[None, :]
+    return {"emit": _emissions(logits, z).contiguous(),
+            "allow_skip": allow_skip.float().contiguous(),
+            "valid_s": valid_s.float().contiguous(), "init_mask": init,
+            "end_mask": end_mask.float().contiguous(), "frame_valid": fv.float().contiguous()}
+
+
+def ctc_kernel_args(ctc_mod, x: dict, alphas=None, dloss=None):
+    """``ctc_alpha``'s and ``ctc_beta``'s arguments for inputs ``x``
+    (``ctc_inputs``), for the wrappers of ``ctc_mod``: this tree's K2b
+    takes the unshifted emissions, masks and the cotangent; a checkout
+    before it took them shifted by a frame, with no cotangent (its caller
+    scaled). logp comes from ``alphas`` (the plain recursion's when None)."""
+    import inspect
+
+    import torch
+
+    LOG_EPS = ctc_mod.LOG_EPS
+    emit_, fv = x["emit"], x["frame_valid"]
+    alpha0 = torch.clamp(x["init_mask"] + emit_[0], min=LOG_EPS)
+    a_args = (emit_, x["allow_skip"], x["valid_s"], fv, alpha0)
+    if alphas is None:
+        alphas = ctc_mod.ctc_alpha_reference(*a_args)
+    final = torch.where(x["end_mask"] > 0.5, alphas[-1], LOG_EPS)
+    logp = torch.clamp(torch.logsumexp(final, dim=1), min=LOG_EPS).contiguous()
+    if "emit_next" in inspect.signature(ctc_mod.ctc_beta).parameters:
+        skip = x["allow_skip"]
+        b_args = (torch.cat([emit_[1:], torch.full_like(emit_[:1], LOG_EPS)]).contiguous(),
+                  torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], dim=1).contiguous(),
+                  torch.cat([fv[1:], torch.zeros_like(fv[:1])]).contiguous(),
+                  torch.where(x["end_mask"] > 0.5, 0.0, LOG_EPS).contiguous(), alphas, logp)
+    else:
+        if dloss is None:
+            dloss = torch.linspace(0.5, 2.0, fv.shape[1], device=fv.device)
+        b_args = (emit_, x["allow_skip"], fv, x["end_mask"], alphas, logp, dloss)
+    return a_args, b_args
+
+
 def ctc_bounds(t, b, s):
+    """K2a's and K2b's bounds: each input read once, each output written
+    once, against ~16 f32 operations a cell (3 exp, 1 log, ~12 adds,
+    maxima and compares). The chain of T steps is their real floor
+    (PERF.md); it is no bound of the card's."""
     cells = t * b * s
     alpha_bytes = 4.0 * (2 * cells + 3 * b * s + t * b)  # emit, alphas; masks, alpha0; fv
-    beta_bytes = 4.0 * (3 * cells + 2 * b * s + t * b + b)  # emit_next, alphas, demit; ...
-    ops = 16.0 * cells  # 3 exp, 1 log, ~12 adds/max/compares per cell, f32
+    beta_bytes = 4.0 * (3 * cells + 2 * b * s + t * b + 2 * b)  # emit, alphas, out; ...
+    ops = 16.0 * cells
     out = []
     for nbytes in (alpha_bytes, beta_bytes):
         by_ops, by_bytes = ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
@@ -828,25 +932,90 @@ def ctc_bounds(t, b, s):
     return out
 
 
-def phase_kernel_ctc():
-    """K2a and K2b against their plain versions, through the loss and its
-    gradient; F.ctc_loss as a third opinion; then times."""
+def ctc_case_small(device, t, b, s, seed=7, holes=False):
+    """``ctc_inputs``-shaped inputs at any (T, B, S): log-emissions of
+    random distributions, ragged frames (row 0 full, row 1 of 0 frames),
+    ragged labels (row 0 full width, row 2 empty), random skips; with
+    ``holes`` the frame mask of rows 0 and 2 is not a prefix (every third
+    frame off)."""
+    import torch
+
+    from tpuasr_torch.ops.ctc import LOG_EPS
+
+    rng = np.random.RandomState(seed)
+    emit_ = np.log(rng.dirichlet(np.ones(8), size=(t, b, s)).max(-1)).astype(np.float32)
+    frames = rng.randint(1, t + 1, size=b)
+    frames[0] = t
+    n_lab = rng.randint(0, (s - 1) // 2 + 1, size=b)
+    n_lab[0] = (s - 1) // 2
+    if b > 1:
+        frames[1] = 0
+    if b > 2:
+        n_lab[2] = 0
+    s_idx = np.arange(s)[None, :]
+    valid_s = (s_idx < 2 * n_lab[:, None] + 1).astype(np.float32)
+    skip = ((s_idx % 2 == 1) & (s_idx >= 2) & (rng.rand(b, s) < 0.7)).astype(np.float32)
+    fv = (np.arange(t)[:, None] < frames[None, :]).astype(np.float32)
+    if holes:
+        fv[1::3, 0] = 0.0
+        if b > 2:
+            fv[2::3, 2] = 0.0
+    init = np.full((b, s), LOG_EPS, np.float32)
+    init[:, 0] = 0.0
+    init[:, 1] = np.where(n_lab > 0, 0.0, LOG_EPS)
+    end = 2 * n_lab
+    end_mask = ((s_idx == end[:, None])
+                | ((s_idx == np.maximum(end - 1, 0)[:, None]) & (n_lab > 0)[:, None]))
+    x = {"emit": emit_, "allow_skip": skip, "valid_s": valid_s, "init_mask": init,
+         "end_mask": end_mask, "frame_valid": fv}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, torch.float32)
+            for k, v in x.items()}
+
+
+def ctc_kernels_vs_plain(x: dict, name: str) -> dict:
+    """K2a and K2b on inputs ``x`` against their plain versions (alphas
+    rel on live cells, their live set equal; dL/demit max-abs, K2b on the
+    plain alphas), then again: two calls must agree bit for bit."""
+    import torch
+
+    import tpuasr_torch.ops.ctc as ctc_mod
+
+    a_args, _ = ctc_kernel_args(ctc_mod, x)
+    alphas = ctc_mod.ctc_alpha(*a_args)
+    want = ctc_mod.ctc_alpha_reference(*a_args)
+    _, b_args = ctc_kernel_args(ctc_mod, x, alphas=want)
+    demit = ctc_mod.ctc_beta(*b_args)
+    want_d = ctc_mod.ctc_beta_reference(*b_args)
+    same = torch.equal(ctc_mod.ctc_alpha(*a_args), alphas) and torch.equal(
+        ctc_mod.ctc_beta(*b_args), demit)
+    torch.cuda.synchronize()
+    live = want > ctc_mod.LOG_EPS / 2
+    rel = ((alphas - want).abs() / want.abs().clamp(min=1.0))[live]
+    row = {"case": name, "shape": list(alphas.shape),
+           "alphas_rel_err": rel.max().item() if rel.numel() else 0.0,
+           "alphas_max_abs_err": (alphas - want).abs()[live].max().item() if rel.numel() else 0.0,
+           "live_equal": bool(torch.equal(alphas > ctc_mod.LOG_EPS / 2, live)),
+           "demit_max_abs_err": (demit - want_d).abs().max().item(), "bit_identical": same,
+           "plan": ctc_mod.ctc_plan("alpha", *alphas.shape[::2], alphas.device)}
+    emit("kernel", kernel="ctc", **row)
+    check(row["live_equal"] and row["alphas_rel_err"] <= 1e-5, f"ctc_alpha vs plain: {row}")
+    check(row["demit_max_abs_err"] <= 2e-4, f"ctc_beta vs plain: {row}")
+    check(same, f"ctc kernels not bit-identical over two calls: {name}")
+    return row
+
+
+def ctc_loss_vs_plain(t: int, l_cap: int, device: str = "cuda") -> dict:
+    """The loss and dL/dlogits through ``ctc_loss`` (K2a, K2b) against the
+    plain recursions, and F.ctc_loss on the feasible rows, at a train
+    bucket's shape (``ctc_case``)."""
     import torch
     import torch.nn.functional as F
 
-    from tpuasr_torch.ctc.loss import _emissions, _extended, ctc_loss
-    from tpuasr_torch.ops.ctc import (
-        LOG_EPS,
-        ctc_alpha,
-        ctc_alpha_reference,
-        ctc_beta,
-        ctc_beta_reference,
-    )
+    from tpuasr_torch.ctc.loss import ctc_loss
 
-    cuda = torch.device("cuda")
-    logits, frames, labels, n_lab = ctc_case(cuda)
-    b, t, c = logits.shape
-    s = 2 * labels.shape[1] + 1
+    cuda = torch.device(device)
+    logits, frames, labels, n_lab = ctc_case(cuda, t=t, l_cap=l_cap)
+    b = logits.shape[0]
     feasible = (n_lab <= frames) & (frames > 0)
     out = {}
     for plain in (False, True):
@@ -857,74 +1026,172 @@ def phase_kernel_ctc():
             (loss * w).sum().backward()
         out[plain] = (loss.detach(), lg.grad)
     (loss_k, g_k), (loss_p, g_p) = out[False], out[True]
-    loss_rel = ((loss_k - loss_p).abs() / loss_p.abs().clamp(min=1.0))[feasible].max().item()
-    grad_err = (g_k - g_p).abs().max().item()
     idx = feasible.nonzero()[:, 0]
     lib = F.ctc_loss(torch.log_softmax(logits[idx], -1).transpose(0, 1), labels[idx],
                      frames[idx], n_lab[idx], blank=0, reduction="none")
-    lib_rel = ((lib - loss_k[idx]).abs() / lib.abs().clamp(min=1.0)).max().item()
-    # the kernels' own outputs against the plain recursions
-    z, s_idx, valid_s, allow_skip = _extended(labels, n_lab, 0)
-    emit_ = _emissions(logits, z).contiguous()
-    skip = allow_skip.float().contiguous()
-    valid_f = valid_s.float().contiguous()
-    fv = (torch.arange(t, device=cuda)[:, None] < frames[None, :]).float().contiguous()
-    init = torch.full((b, s), LOG_EPS, device=cuda)
-    init[:, 0] = 0.0
-    init[:, 1] = torch.where(n_lab > 0, 0.0, LOG_EPS)
-    alpha0 = torch.clamp(init + emit_[0], min=LOG_EPS)
-    a_args = (emit_, skip, valid_f, fv, alpha0)
-    alphas = ctc_alpha(*a_args)
-    alphas_p = ctc_alpha_reference(*a_args)
-    live = alphas_p > LOG_EPS / 2
-    alpha_err = (alphas - alphas_p).abs()[live].max().item()
-    end = 2 * n_lab
-    end_mask = ((s_idx == end[:, None]) | ((s_idx == (end - 1).clamp(min=0)[:, None])
-                                           & (n_lab > 0)[:, None])).float()
-    logp = -loss_p
-    emit_next = torch.cat([emit_[1:], torch.full_like(emit_[:1], LOG_EPS)]).contiguous()
-    fv_next = torch.cat([fv[1:], torch.zeros_like(fv[:1])]).contiguous()
-    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], dim=1).contiguous()
-    beta_init = torch.where(end_mask > 0.5, 0.0, LOG_EPS).contiguous()
-    b_args = (emit_next, skip2, fv_next, beta_init, alphas_p, logp.contiguous())
-    demit_err = (ctc_beta(*b_args) - ctc_beta_reference(*b_args)).abs().max().item()
-    torch.cuda.synchronize()
-    row = {"case": "train-5s-f32", "shape": [t, b, s], "loss_rel_err": loss_rel,
-           "dlogits_max_abs_err": grad_err, "alphas_max_abs_err": alpha_err,
-           "demit_max_abs_err": demit_err, "f_ctc_loss_rel_err": lib_rel,
+    row = {"case": f"loss-{t}", "shape": [t, b, 2 * l_cap + 1],
+           "loss_rel_err": ((loss_k - loss_p).abs()
+                            / loss_p.abs().clamp(min=1.0))[feasible].max().item(),
+           "dlogits_max_abs_err": (g_k - g_p).abs().max().item(),
+           "f_ctc_loss_rel_err": ((lib - loss_k[idx]).abs()
+                                  / lib.abs().clamp(min=1.0)).max().item(),
            "rows": {"empty_label": 1, "infeasible": 2, "zero_frames": 3},
            "infeasible_losses": loss_k[~feasible].tolist()}
     emit("kernel", kernel="ctc", **row)
-    check(loss_rel <= 1e-5 and grad_err <= 2e-4, f"CTC kernels vs plain: {row}")
-    check(demit_err <= 2e-4, f"ctc_beta vs plain: {demit_err}")
-    check(lib_rel <= 1e-4, f"CTC vs F.ctc_loss on feasible rows: {lib_rel}")
+    check(row["loss_rel_err"] <= 1e-5 and row["dlogits_max_abs_err"] <= 2e-4,
+          f"CTC kernels vs plain: {row}")
+    check(row["f_ctc_loss_rel_err"] <= 1e-4, f"CTC vs F.ctc_loss on feasible rows: {row}")
     check(bool((loss_k[~feasible] > 1e29).all()), "infeasible rows must give ~1e30")
+    return row
 
-    (alpha_bound, alpha_by), (beta_bound, beta_by) = ctc_bounds(t, b, s)
-    log_probs = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
-    lp_grad = log_probs.clone().requires_grad_()
-    lib_frames = frames.clamp(min=1)  # the library call is given >= 1 frame a row
 
-    def lib_fwd():
-        with torch.no_grad():
-            F.ctc_loss(log_probs, labels, lib_frames, n_lab, reduction="none")
+def ctc_split(run, reps: int = 1):
+    """K2a's and K2b's step split: ``run()`` (``reps`` times) with their
+    step timer on (``tpuasr_torch.ops.ctc.ctc_parts``), reduced over every
+    block and call, for each kernel: each span's share of the loop's
+    clock64 cycles (thread 0: the wait on the step's inputs, the lse3
+    math, the stores, the exchange with the neighbours) and cycles a step
+    (alpha T - 1 steps a call, beta T). None when nothing launched (a CPU
+    rehearsal, or a checkout without the timer)."""
+    import torch
 
-    def lib_fwd_bwd():
-        F.ctc_loss(lp_grad, labels, lib_frames, n_lab, reduction="none").sum().backward()
+    import tpuasr_torch.ops.ctc as ctc_mod
 
-    lib_fwd_ms = time_ms(lib_fwd, iters=20)
-    timing = {
-        "ctc_alpha": {"shape": [t, b, s], "ms": time_ms(lambda: ctc_alpha(*a_args), iters=20),
-                      "plain_ms": time_ms(lambda: ctc_alpha_reference(*a_args), iters=3),
-                      "library_ms": lib_fwd_ms, "bound_ms": alpha_bound, "bound_by": alpha_by},
-        "ctc_beta": {"shape": [t, b, s], "ms": time_ms(lambda: ctc_beta(*b_args), iters=20),
-                     "plain_ms": time_ms(lambda: ctc_beta_reference(*b_args), iters=3),
-                     "library_ms": time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms,
-                     "bound_ms": beta_bound, "bound_by": beta_by},
-    }
-    for k, v in timing.items():
-        emit("kernel_time", kernel=k, **v)
-    return row, timing
+    if not hasattr(ctc_mod, "CTC_PARTS"):
+        return None
+    ctc_mod.ctc_parts = []
+    try:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        parts = ctc_mod.ctc_parts
+    finally:
+        ctc_mod.ctc_parts = None
+    names = ctc_mod.CTC_PARTS
+    out = {}
+    for kernel in ("alpha", "beta"):
+        calls = [c for c in parts if c["kernel"] == kernel]
+        if not calls:
+            continue
+        cycles = dict.fromkeys(names, 0.0)
+        for c in calls:
+            for k, v in zip(names, c["timer"].double().mean(0).tolist()):
+                cycles[k] += v
+        steps = sum(max(c["T"] - (kernel == "alpha"), 1) for c in calls)
+        out[kernel] = {"share": {k: cycles[k] / max(cycles["loop"], 1.0) for k in names[:-1]},
+                       "cycles_per_step": {k: v / steps for k, v in cycles.items()},
+                       "steps_per_run": steps / reps}
+    return out or None
+
+
+CTC_VARIANTS = ({"_slots": 2}, {"_slots": 3})  # slots a thread, beside the default (1)
+
+
+def ctc_times(smi: str, label: str = "tree", device: str = "cuda") -> list:
+    """The ``ctc_split`` phase: K2a's and K2b's times at both train buckets
+    (B=32, T'=251 with S=261, T'=826 with S=837), the launches queued
+    ahead of the card (``time_queued``, medians of three means of 20
+    calls), and each kernel's step split (``ctc_split``) scaled to the
+    untimed step; where the wrappers take launch-plan overrides, the same
+    for each of ``CTC_VARIANTS``. One JSON line a shape and variant, tagged
+    ``label``; the tpuasr_torch imported is the first on sys.path (the
+    ``--time-ctc`` mode times another checkout this way)."""
+    import inspect
+
+    import torch
+
+    import tpuasr_torch.ops.ctc as ctc_mod
+
+    knobs = "_slots" in inspect.signature(ctc_mod.ctc_alpha).parameters
+    rows = []
+    for t, l_cap in CTC_SHAPES:
+        x = ctc_inputs(*ctc_case(torch.device(device), t=t, l_cap=l_cap))
+        a_args, b_args = ctc_kernel_args(ctc_mod, x)
+        for kw in ({}, *(CTC_VARIANTS if knobs else ())):
+            fns = {"alpha": lambda: ctc_mod.ctc_alpha(*a_args, **kw),
+                   "beta": lambda: ctc_mod.ctc_beta(*b_args, **kw)}
+            ms = {k: sorted(time_queued(fn) for _ in range(3)) for k, fn in fns.items()}
+            split = ctc_split(lambda: [fn() for fn in fns.values()])
+            row = {"label": label, "shape": list(x["emit"].shape), "variant": kw,
+                   **{f"{k}_ms": v[1] for k, v in ms.items()},
+                   **{f"{k}_ms_range": [v[0], v[2]] for k, v in ms.items()}}
+            if knobs:
+                row["plan"] = ctc_mod.ctc_plan("alpha", t, x["emit"].shape[2], device,
+                                               kw.get("_slots", 0))
+            if not kw:  # events around a host loop of launches, not queued: the trap
+                row.update({f"{k}_host_loop_ms": time_ms(fn, iters=20) for k, fn in fns.items()})
+            for k, sp in (split or {}).items():
+                step_us = row[f"{k}_ms"] * 1e3 / sp["steps_per_run"]
+                row[f"{k}_split"] = {**sp, "step_us": step_us, "us_per_step": {
+                    p: v * step_us for p, v in sp["share"].items()}}
+            emit("ctc_split", **row, nvidia_smi=smi)
+            rows.append(row)
+    return rows
+
+
+def phase_kernel_ctc(smi: str, device: str = "cuda"):
+    """K2a and K2b against their plain versions: through the loss and its
+    gradient at both train buckets (F.ctc_loss a third opinion), and
+    their own outputs there, at S=5001 (past the old 4096 cap), at T=1
+    and with a frame mask that is not a prefix, each twice for bit
+    equality; then their times, the launches queued ahead of the card,
+    beside the plain versions', F.ctc_loss's (which synchronises, so it
+    is timed around a host loop) and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    import tpuasr_torch.ops.ctc as ctc_mod
+
+    cuda = torch.device(device)
+    loss_rows = [ctc_loss_vs_plain(t, l_cap, device) for t, l_cap in CTC_SHAPES]
+    rows = [ctc_kernels_vs_plain(ctc_inputs(*ctc_case(cuda, t=t, l_cap=l_cap)), f"train-{t}")
+            for t, l_cap in CTC_SHAPES]
+    rows += [ctc_kernels_vs_plain(ctc_case_small(cuda, 5, 2, 5001), "S5001"),
+             ctc_kernels_vs_plain(ctc_case_small(cuda, 1, 4, 261), "T1"),
+             ctc_kernels_vs_plain(ctc_case_small(cuda, 40, 6, 61, holes=True), "holes")]
+
+    timings = {"ctc_alpha": [], "ctc_beta": []}
+    for t, l_cap in CTC_SHAPES:
+        logits, frames, labels, n_lab = ctc_case(cuda, t=t, l_cap=l_cap)
+        x = ctc_inputs(logits, frames, labels, n_lab)
+        b, s = x["emit"].shape[1:]
+        a_args, b_args = ctc_kernel_args(ctc_mod, x)
+        (alpha_bound, alpha_by), (beta_bound, beta_by) = ctc_bounds(t, b, s)
+        log_probs = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+        lp_grad = log_probs.clone().requires_grad_()
+        lib_frames = frames.clamp(min=1)  # the library call is given >= 1 frame a row
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.ctc_loss(log_probs, labels, lib_frames, n_lab, reduction="none")
+
+        def lib_fwd_bwd():
+            F.ctc_loss(lp_grad, labels, lib_frames, n_lab, reduction="none").sum().backward()
+
+        # F.ctc_loss copies the lengths from pageable host memory, which
+        # waits for the stream: it cannot be queued ahead, so CUDA events
+        # time it around a host loop of 20 calls
+        lib_fwd_ms = time_ms(lib_fwd, iters=20)
+        plain_iters = 3 if t < 500 else 1
+        timing = {"shape": [t, b, s], "timing": "kernel: launches queued behind "
+                  "torch.cuda._sleep, mean of 20; library: events around 20 calls",
+                  "nvidia_smi": smi}
+        timings["ctc_alpha"].append({
+            **timing, "ms": time_queued(lambda: ctc_mod.ctc_alpha(*a_args)),
+            "plain_ms": time_ms(lambda: ctc_mod.ctc_alpha_reference(*a_args), iters=plain_iters),
+            "library_ms": lib_fwd_ms, "bound_ms": alpha_bound, "bound_by": alpha_by})
+        timings["ctc_beta"].append({
+            **timing, "ms": time_queued(lambda: ctc_mod.ctc_beta(*b_args)),
+            "plain_ms": time_ms(lambda: ctc_mod.ctc_beta_reference(*b_args), iters=plain_iters),
+            "library_ms": time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms, "bound_ms": beta_bound,
+            "bound_by": beta_by})
+        for k, v in timings.items():
+            emit("kernel_time", kernel=k, **v[-1])
+    first = {"loss_rel_err": max(r["loss_rel_err"] for r in loss_rows),
+             "dlogits_max_abs_err": max(r["dlogits_max_abs_err"] for r in loss_rows),
+             "alphas_max_abs_err": max(r["alphas_max_abs_err"] for r in rows),
+             "demit_max_abs_err": max(r["demit_max_abs_err"] for r in rows)}
+    return first, timings
 
 
 # ------------------------------------------------------------------- train
@@ -1082,9 +1349,11 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
     """Where one full-width train step's device time goes: CUDA events
     around the frontend, the conv blocks, the RNN layers' forward (the
     path's forward kernel inside: K1f, K4f or K5f), the CTC loss (K2a
-    inside), the backward's RNN kernel (K1b, K4b or K5b) and K2b calls,
-    the rest of the RNN backward (dw and db einsums, packing), the clip
-    and the SGD step, and the whole step; ``rest`` is what no span
+    inside), the CTC backward (``CTCFromEmit.backward``, K2b inside), the
+    backward's RNN kernel (K1b, K4b or K5b) calls, the rest of the RNN
+    backward (dw and db einsums, packing), the clip and the SGD step, and
+    the whole step; ``ctc_ms`` is the CTC layer's forward and backward
+    (not the log-softmax's backward); ``rest`` is what no span
     covers (the backward of the convs, projections, BatchNorms and head,
     and the global norms). Means over 3 steps after a warm one; then the
     forward kernel's step split over one more step."""
@@ -1132,6 +1401,8 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
         mock.patch.object(ctc_mod, "ctc_beta", timed("k2b", ctc_mod.ctc_beta)),
         mock.patch.object(fn_cls, "backward",
                           staticmethod(timed("rnn_backward_fn", fn_cls.backward))),
+        mock.patch.object(ctc_mod.CTCFromEmit, "backward",
+                          staticmethod(timed("ctc_backward_fn", ctc_mod.CTCFromEmit.backward))),
         mock.patch.object(step_mod, "clip_by_global_norm_",
                           timed("clip", step_mod.clip_by_global_norm_)),
         mock.patch.object(step.optimizer, "step", timed("sgd_step", step.optimizer.step)),
@@ -1166,12 +1437,14 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
     for name, s, e in spans:
         ms[name] = ms.get(name, 0.0) + s.elapsed_time(e) / reps
     total = start.elapsed_time(end) / reps
-    top = ("frontend", "conv", "rnn_forward", "ctc_loss_forward", "k2b",
+    top = ("frontend", "conv", "rnn_forward", "ctc_loss_forward", "ctc_backward_fn",
            "rnn_backward_fn", "clip", "sgd_step")  # disjoint spans
     row = {"path": path, "batch": list(batch.waves.shape), "step_device_ms": total,
            "step_host_ms": host_ms, **{f"{k}_ms": v for k, v in sorted(ms.items())},
            "rest_ms": total - sum(ms[k] for k in top),  # other backward work, norms
            f"rnn_backward_outside_{kb}_ms": ms["rnn_backward_fn"] - ms[kb],
+           "ctc_backward_outside_k2b_ms": ms["ctc_backward_fn"] - ms["k2b"],
+           "ctc_ms": ms["ctc_loss_forward"] + ms["ctc_backward_fn"],
            f"rnn_forward_outside_{kf}_ms": ms["rnn_forward"] - ms[kf],
            # the forward kernel's step, split (one more step, timer on)
            f"{kf}_split": split_us(fwd_split(lambda: step(*args)), ms[kf]),
@@ -2084,6 +2357,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--time-ctc"]:  # LABEL [ROOT]
+        sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
+        ctc_times(nvidia_smi_line(), label=sys.argv[2])
+        return 0
     if sys.argv[1:2] == ["--time-beam"]:  # WORK LABEL [ROOT]
         sys.path.insert(0, sys.argv[4] if len(sys.argv) > 4 else str(ROOT))
         time_beam_path(Path(sys.argv[2]), sys.argv[3], nvidia_smi_line())
@@ -2100,7 +2377,8 @@ def main() -> int:
 
     k1f_row, k1f_timings = phase_kernel()
     k1b_row, k1b_timings = phase_kernel_bwd()
-    ctc_row, ctc_timing = phase_kernel_ctc()
+    ctc_row, ctc_timing = phase_kernel_ctc(smi)
+    ctc_times(smi)  # ctc_split: K2a's and K2b's step split at both buckets
     k4_err, k4_timings = phase_kernel_lstm()
     k5_err, k5_timings = phase_kernel_gru2()
     phase_fwd_row_groups()
@@ -2145,11 +2423,13 @@ def main() -> int:
                      k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
                      card=smi),
         kernel_entry("ctc_alpha", "tpuasr/ops/ctc.py:57 _alpha_kernel",
-                     ctc_row["alphas_max_abs_err"], ctc_timing["ctc_alpha"],
-                     by_path("ctc_alpha"), loss_rel_err=ctc_row["loss_rel_err"], card=smi),
+                     ctc_row["alphas_max_abs_err"], ctc_timing["ctc_alpha"][0],
+                     by_path("ctc_alpha"), loss_rel_err=ctc_row["loss_rel_err"],
+                     timings=ctc_timing["ctc_alpha"], card=smi),
         kernel_entry("ctc_beta", "tpuasr/ops/ctc.py:83 _beta_kernel",
-                     ctc_row["demit_max_abs_err"], ctc_timing["ctc_beta"], by_path("ctc_beta"),
-                     dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"], card=smi),
+                     ctc_row["demit_max_abs_err"], ctc_timing["ctc_beta"][0], by_path("ctc_beta"),
+                     dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"],
+                     timings=ctc_timing["ctc_beta"], card=smi),
         kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
                      next(r for r in beam_timings if r["mode"] == "word"), beam_launches,
                      timings=beam_timings, limits=limit_rows, card=smi),

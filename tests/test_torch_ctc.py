@@ -22,7 +22,7 @@ from tpuasr.ctc.loss import ctc_loss as jax_ctc_scan
 from tpuasr.ctc.loss import ctc_loss_mean as jax_ctc_loss_mean
 from tpuasr.ctc.loss import ctc_loss_pallas as jax_ctc_pallas
 from tpuasr_torch.ctc.loss import ctc_loss, ctc_loss_autograd, ctc_loss_mean
-from tpuasr_torch.ops.ctc import ctc_alpha, ctc_beta
+from tpuasr_torch.ops.ctc import CTCFromEmit, ctc_alpha, ctc_beta
 
 
 @pytest.fixture
@@ -119,3 +119,50 @@ def test_loss_mean_matches_jax():
     mean_j, ok_j = jax_ctc_loss_mean(*(jnp.asarray(a) for a in (logits, frames, labels, n_lab)))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_j))
     np.testing.assert_allclose(mean.item(), float(mean_j), rtol=1e-5)
+
+
+def _emit_case(seed, t, b, s):
+    """Inputs of ``ctc_loss_from_emit`` at (T, B, S), from numpy: log
+    emissions, ragged labels (row 0 full width), row 0's frame mask with
+    holes (not a prefix), row 1 of fewer frames, skips where the labels
+    allow them."""
+    rng = np.random.RandomState(seed)
+    emit = np.log(rng.dirichlet(np.ones(6), size=(t, b, s)).max(-1)).astype(np.float32)
+    n_lab = rng.randint(0, (s - 1) // 2 + 1, size=b)
+    n_lab[0] = (s - 1) // 2
+    s_idx = np.arange(s)[None, :]
+    valid_s = (s_idx < 2 * n_lab[:, None] + 1).astype(np.float32)
+    skip = ((s_idx % 2 == 1) & (s_idx >= 2) & (rng.rand(b, s) < 0.7)).astype(np.float32)
+    fv = np.ones((t, b), np.float32)
+    fv[1::3, 0] = 0.0
+    if b > 1:
+        fv[t - 2:, 1] = 0.0
+    init = np.full((b, s), -1e30, np.float32)
+    init[:, 0] = 0.0
+    init[:, 1] = np.where(n_lab > 0, 0.0, -1e30)
+    end = 2 * n_lab
+    end_mask = ((s_idx == end[:, None])
+                | ((s_idx == np.maximum(end - 1, 0)[:, None]) & (n_lab > 0)[:, None]))
+    return emit, init, skip, valid_s, fv, end_mask.astype(np.float32)
+
+
+@pytest.mark.parametrize("t,b,s", [(13, 3, 9), (6, 2, 5001)], ids=["small", "S5001"])
+def test_emit_loss_and_vjp_match_jax(t, b, s, interpret_mode):
+    """CTCFromEmit (on the CPU: K2a's and K2b's plain versions, K2b's
+    shift, mask and cotangent folded in) against jax.vjp of
+    ctc_loss_from_emit in interpret mode, at the emission level, with an
+    uneven cotangent that is zero on the last row; S=5001 is past the
+    kernels' old 4096 cap."""
+    args = _emit_case(11, t, b, s)
+    dloss = np.linspace(0.5, 2.0, b).astype(np.float32)
+    dloss[-1] = 0.0
+    emit = torch.from_numpy(args[0]).requires_grad_()
+    loss = CTCFromEmit.apply(emit, *(torch.from_numpy(a) for a in args[1:]))
+    loss.backward(torch.from_numpy(dloss))
+    loss_j, vjp = jax.vjp(lambda e: jax_ctc_ops.ctc_loss_from_emit(
+        e, *(jnp.asarray(a) for a in args[1:])), jnp.asarray(args[0]))
+    (grad_j,) = vjp(jnp.asarray(dloss))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(loss_j), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(emit.grad.numpy(), np.asarray(grad_j), rtol=2e-4, atol=2e-4)
+    assert np.all(emit.grad.numpy()[:, -1] == 0)  # the zero cotangent
+    assert np.all(emit.grad.numpy()[1::3, 0] == 0)  # row 0's masked frames

@@ -24,9 +24,11 @@ compiled body with other strides).
 
 CTC alpha and beta: alphas within rel 1e-5 of the plain recursion on
 frames where they are finite, dL/demit within 2e-4 absolute
-(tests/test_pallas_ctc.py's loss and gradient tolerances); both sum the
-same three exponentials in the same order, so the difference is the
-exp/log implementations' last bits.
+(tests/test_pallas_ctc.py's loss and gradient tolerances); the kernels
+compute every cell with the plain version's operations in its order, on
+the same card's expf and logf, so they agree bit for bit, and a warp
+that skips an lse3 whose inputs are all log-zero writes the LOG_EPS that
+lse3 gives.
 
 Prefix beam search (K3): parents and chars equal to the plain version's
 and scores within 1e-5 relative (at least 1e-5 absolute), in every LM
@@ -558,21 +560,29 @@ def test_backward_kernels_past_one_plan_run_in_row_groups(n_gates, b, dtype,
     _assert_close(got, want, dtype, want.float().abs().max().item())
 
 
-def _ctc_case(device, t, b, s, seed=7):
-    """Log-emissions with ragged frame counts (one row padded to 0
-    frames) and ragged label lengths (one empty, one longer than its
-    frames)."""
+def _ctc_case(device, t, b, s, seed=7, holes=False):
+    """Log-emissions with ragged frame counts (row 1 padded to 0 frames,
+    its labels at full width) and ragged label lengths (one empty, one
+    longer than its frames); with ``holes`` the frame mask of row 0 is
+    not a prefix (every third frame off)."""
     rng = np.random.RandomState(seed)
     emit = np.log(rng.dirichlet(np.ones(8), size=(t, b, s)).max(-1)).astype(np.float32)
     frames = rng.randint(1, t + 1, size=b)
-    frames[0], frames[1] = t, 0
     n_lab = rng.randint(0, (s - 1) // 2 + 1, size=b)
-    n_lab[0], n_lab[2], n_lab[3] = (s - 1) // 2, 0, min((s - 1) // 2, t + 5)
-    frames[3] = max(1, n_lab[3] - 3)  # infeasible: more labels than frames
+    frames[0], n_lab[0] = t, (s - 1) // 2
+    if b > 1:
+        frames[1], n_lab[1] = 0, (s - 1) // 2
+    if b > 2:
+        n_lab[2] = 0
+    if b > 3:
+        n_lab[3] = min((s - 1) // 2, t + 5)
+        frames[3] = max(1, n_lab[3] - 3)  # infeasible: more labels than frames
     s_idx = np.arange(s)[None, :]
     valid_s = (s_idx < 2 * n_lab[:, None] + 1).astype(np.float32)
     skip = ((s_idx % 2 == 1) & (s_idx >= 2) & (rng.rand(b, s) < 0.7)).astype(np.float32)
     fv = (np.arange(t)[:, None] < frames[None, :]).astype(np.float32)
+    if holes:
+        fv[1::3, 0] = 0.0
     init = np.full((b, s), LOG_EPS, np.float32)
     init[:, 0] = 0.0
     init[:, 1] = np.where(n_lab > 0, 0.0, LOG_EPS)
@@ -583,39 +593,76 @@ def _ctc_case(device, t, b, s, seed=7):
             for a in (emit, init, skip, valid_s, fv, end_mask)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,b,s", [(11, 5, 9), (40, 6, 61), (251, 32, 261), (3, 4, 1201)],
-                         ids=["tiny", "small", "train-5s", "S1201"])
-def test_ctc_kernels_match_reference(t, b, s, cuda):  # noqa: F811
-    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, t, b, s)
+def _ctc_run(case, **plan):
+    """K2a and K2b on ``case`` and their plain versions (K2b on the plain
+    alphas, an uneven cotangent with a zero): (alphas, want, demit,
+    want_d)."""
+    emit, init, skip, valid_s, fv, end_mask = case
     alpha0 = torch.clamp(init + emit[0], min=LOG_EPS)
-    before = ctc_alpha.launches, ctc_beta.launches
-    alphas = ctc_alpha(emit, skip, valid_s, fv, alpha0)
+    alphas = ctc_alpha(emit, skip, valid_s, fv, alpha0, **plan)
     want = ctc_alpha_reference(emit, skip, valid_s, fv, alpha0)
+    logp = torch.logsumexp(torch.where(end_mask > 0.5, want[-1], LOG_EPS), dim=1)
+    dloss = torch.linspace(0.5, 2.0, emit.shape[1], device=emit.device)
+    dloss[-1] = 0.0
+    b_args = (emit, skip, fv, end_mask, want, logp, dloss)
+    demit = ctc_beta(*b_args, **plan)
+    want_d = ctc_beta_reference(*b_args)
     torch.cuda.synchronize()
+    return alphas, want, demit, want_d
+
+
+def _assert_ctc_close(alphas, want, demit, want_d):
     live = want > LOG_EPS / 2
     assert torch.equal(alphas > LOG_EPS / 2, live)
     rel = ((alphas - want).abs() / want.abs().clamp(min=1.0))[live]
-    assert rel.max().item() <= 1e-5
-    logp = torch.logsumexp(torch.where(end_mask > 0.5, alphas[-1], LOG_EPS), dim=1)
-    emit_next = torch.cat([emit[1:], torch.full_like(emit[:1], LOG_EPS)]).contiguous()
-    fv_next = torch.cat([fv[1:], torch.zeros_like(fv[:1])]).contiguous()
-    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], dim=1).contiguous()
-    beta_init = torch.where(end_mask > 0.5, 0.0, LOG_EPS).contiguous()
-    demit = ctc_beta(emit_next, skip2, fv_next, beta_init, alphas, logp)
-    want_d = ctc_beta_reference(emit_next, skip2, fv_next, beta_init, alphas, logp)
-    torch.cuda.synchronize()
-    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
+    assert rel.numel() == 0 or rel.max().item() <= 1e-5
     assert (demit - want_d).abs().max().item() <= 2e-4
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,b,s,holes", [(11, 5, 9, False), (40, 6, 61, False),
+                                         (251, 32, 261, False), (3, 4, 1201, False),
+                                         (826, 8, 837, False), (5, 2, 5001, False),
+                                         (1, 4, 261, False), (30, 4, 1025, False),
+                                         (40, 6, 61, True)],
+                         ids=["tiny", "small", "train-5s", "S1201", "train-16s", "S5001",
+                              "T1", "S1025", "holes"])
+def test_ctc_kernels_match_reference(t, b, s, holes, cuda):  # noqa: F811
+    case = _ctc_case(cuda, t, b, s, holes=holes)
+    before = ctc_alpha.launches, ctc_beta.launches
+    got = _ctc_run(case)
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
+    _assert_ctc_close(*got)
+    if b > 1:  # the row of 0 frames, at full width: no gradient
+        assert bool((got[2][:, 1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [2, 3, 4, 8, 16, 32])
+def test_ctc_kernels_every_launch_plan(slots, cuda):  # noqa: F811
+    """Every instantiated slot count a thread (each with its prefetch
+    depth), with the plain versions' results, at a width that leaves
+    ragged tails."""
+    _assert_ctc_close(*_ctc_run(_ctc_case(cuda, 23, 5, 301, holes=True), _slots=slots))
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_are_deterministic(cuda):  # noqa: F811
+    first = _ctc_run(_ctc_case(cuda, 251, 32, 261, holes=True))
+    second = _ctc_run(_ctc_case(cuda, 251, 32, 261, holes=True))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.cuda
 def test_ctc_function_gradient_matches_plain(cuda):  # noqa: F811
-    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, 30, 6, 21)
+    emit, init, skip, valid_s, fv, end_mask = _ctc_case(cuda, 30, 6, 21, holes=True)
     e_k = emit.clone().requires_grad_()
+    before = ctc_beta.launches
     loss_k = CTCFromEmit.apply(e_k, init, skip, valid_s, fv, end_mask)
     w = torch.linspace(0.5, 2.0, loss_k.shape[0], device=cuda)
+    w[3] = 0.0
     (loss_k * w).sum().backward()
+    assert ctc_beta.launches == before + 1
     import tpuasr_torch.ops.ctc as ctc_mod
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ctc_mod, "ctc_alpha", ctc_alpha_reference)
@@ -639,8 +686,23 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
         ctc_alpha(emit.double(), skip, valid_s, fv, init)
     with pytest.raises(ValueError, match="contiguous"):
         ctc_alpha(emit.transpose(0, 1).contiguous().transpose(0, 1), skip, valid_s, fv, init)
+    logp, dloss = init[:, 0].contiguous(), torch.ones(4, device=cuda)
     with pytest.raises(ValueError):
-        ctc_beta(emit, skip, fv, init, emit, init[:, 0].cpu())
+        ctc_beta(emit, skip, fv, end_mask, emit, logp.cpu(), dloss)
+    with pytest.raises(ValueError):
+        ctc_beta(emit, skip, fv, end_mask, emit, logp, dloss[:3])
+    # past the shared-memory rows (~29,000 slots on an H100): refused with
+    # its reason, before any launch
+    big = 2 * 16384 + 1
+    z = torch.zeros((2, 1, big), device=cuda)
+    m = torch.zeros((1, big), device=cuda)
+    f = torch.ones((2, 1), device=cuda)
+    before = ctc_alpha.launches, ctc_beta.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_alpha(z, m, m, f, m)
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_beta(z, m, f, m, z, torch.zeros(1, device=cuda), torch.ones(1, device=cuda))
+    assert (ctc_alpha.launches, ctc_beta.launches) == before
 
 
 def _beam_lines(mode, alphabet):
