@@ -119,7 +119,28 @@ non-zero without printing a result:
                1-5 s requests and a lone one, the path's forward kernel
                launched, one batch vs the plain loop) with its batch's
                time split.
-  9. a {"kernels": [...]} line (all nine kernels, launches by path),
+  9. augment_resident — slice 9's paths at the flagship's width (5
+               BiGRU-800 layers, bf16, batch 32): each augmentation apply
+               (speed and gain, WSOLA tempo, tempo and gain in both modes,
+               noise, SpecAugment) on the card vs the CPU with the same
+               parameters drawn from a CUDA generator, on phase 4's first
+               32 x 5 s batch (atol 1e-5, lengths equal); one train step
+               through make_resident_epoch_runner vs the per-batch step
+               (train_parity's tolerances); the augmentation's device ms
+               in a step; then tpuasr_torch.cli.train --device-resident-
+               audio --augment --noise-dir --spec-augment --profile-dir
+               for 2 epochs on 1,024 synthetic utterances of 2-10 s (7
+               buckets): every loss finite, K1f, K1b, K2a and K2b
+               launched, the trace of steps 10-15 naming the RNN and CTC
+               kernels, with the device's idle share over it; a warm
+               chunk again under torch.cuda.set_sync_debug_mode("error");
+               the same training through AudioBatchLoader (the warm
+               epoch's utt/s beside the resident one); cli.test
+               --device-resident-audio, greedy and beam-device with a
+               word trigram, on 32 utterances of each of two buckets,
+               printing what the per-batch run prints (K3 launched); and
+               cli.noise_inject writing a WAV.
+ 10. a {"kernels": [...]} line (all nine kernels, launches by path),
      then the nvidia-smi line, then the last line
      {"ok": true, "device": {...}}.
 
@@ -2324,6 +2345,449 @@ def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
     }
 
 
+# ------------------------------------------------------- augment_resident
+
+AUGMENT_ATOL = 1e-5  # an apply on the card vs the CPU: the same f32 operations
+
+
+def augment_apply_checks(waves_np, lengths_np, noise_dir: str, device: str = "cuda") -> dict:
+    """Each augmentation apply on the card against the same function on
+    the CPU with the same parameters, drawn on the card from one CUDA
+    generator: max-abs error of the output (atol AUGMENT_ATOL) and equal
+    lengths. On the CPU (rehearsal) both sides are the CPU."""
+    import torch
+
+    from tpuasr_torch.audio import augment as aug
+    from tpuasr_torch.audio.frontend import FrontendConfig, log_spectrogram
+
+    dev, cpu = torch.device(device), torch.device("cpu")
+    cfg = aug.AugmentConfig(noise_prob=0.5, spec_augment=True, n_freq_masks=2, n_time_masks=2)
+    waves = torch.from_numpy(waves_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev).long()
+    bank = torch.from_numpy(aug.load_noise_bank(noise_dir, 16000)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b = waves.shape[0]
+    rates, gains = aug.draw_tempo_gain(gen, b, cfg)
+    offsets, levels, on = aug.draw_noise(gen, b, bank.shape[0], cfg)
+    with torch.no_grad():
+        feats, feat_lengths = log_spectrogram(waves, lengths, FrontendConfig())
+    freq, tmask = aug.draw_spec_augment(gen, feat_lengths, feats.shape[1], feats.shape[2], cfg)
+
+    def on_dev(d, *ts):
+        return [t.to(d) for t in ts]
+
+    resample = aug.AugmentConfig(tempo_mode="resample")
+    cases = {
+        "speed_and_gain": lambda d: aug.speed_and_gain(*on_dev(d, rates, gains, waves, lengths)),
+        "wsola_tempo": lambda d: aug.wsola_tempo(*on_dev(d, rates, waves, lengths)),
+        "tempo_and_gain_wsola": lambda d: aug.tempo_and_gain(
+            *on_dev(d, rates, gains, waves, lengths), cfg),
+        "tempo_and_gain_resample": lambda d: aug.tempo_and_gain(
+            *on_dev(d, rates, gains, waves, lengths), resample),
+        "inject_noise": lambda d: (aug.inject_noise(
+            *on_dev(d, offsets, levels, on, waves, lengths, bank)),),
+        "spec_augment": lambda d: (aug.spec_augment(
+            [on_dev(d, *m) for m in freq], [on_dev(d, *m) for m in tmask],
+            feats.to(d)),),
+    }
+    errs = {}
+    for name, fn in cases.items():
+        got, want = fn(dev), fn(cpu)
+        errs[name] = (got[0].cpu() - want[0]).abs().max().item()
+        check(errs[name] <= AUGMENT_ATOL, f"{name} on the card vs the CPU: {errs[name]}")
+        if len(got) > 1:
+            check(torch.equal(got[1].cpu(), want[1]), f"{name}: lengths differ")
+    return {"batch": list(waves.shape), "max_abs_err": errs, "noise_rows_on": int(on.sum()),
+            "rates": [float(rates.min()), float(rates.max())]}
+
+
+# device events of a trace by what they run (the first group whose name
+# fragment the event's name holds; the last takes the rest)
+TRACE_GROUPS = (("rnn_backward_loop", ("rnn_bwd_loop",)), ("rnn_forward_loop", ("rnn_fwd_loop",)),
+                ("hg_gemm", ("hg_gemm",)), ("ctc", ("ctc_alpha", "ctc_beta")),
+                ("cudnn_conv", ("cudnn", "implicit_gemm")),
+                ("cublas_gemm", ("nvjet", "gemm", "cutlass")),
+                ("copy_set", ("Memcpy", "Memset")), ("elementwise_reduce_other", ()))
+
+
+def trace_summary(path) -> dict:
+    """The device's idle share and kernel time by name over a
+    torch.profiler Chrome trace. ``idle_share`` is 1 - (the union of the
+    device's kernel, copy and set intervals) / (first device event start
+    to last device event end): the span in which the card ran the traced
+    steps. The host queues steps ahead of the card, so the trace's own
+    window (first event to last) opens while the card still runs work
+    queued before the trace, which it does not record:
+    ``idle_share_of_window`` counts that as idle and is an upper bound.
+    ``gaps`` are the longest idle stretches with the device events on
+    either side."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e.get("name", "")) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    if not dev:
+        return {"window_ms": (t1 - t0) / 1e3, "device_events": 0, "kernels": []}
+    busy, end, gaps = 0.0, dev[0][0], []
+    prev = dev[0][2]
+    for s, e, n in dev:
+        if s > end:
+            gaps.append(((s - end) / 1e3, prev[:60], n[:60]))
+        busy += max(0.0, e - max(s, end))
+        if e > end:
+            end, prev = e, n
+    span = end - dev[0][0]
+    by_name: dict = {}
+    by_group = {g: 0.0 for g, _ in TRACE_GROUPS}
+    for s, e, n in dev:
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3
+        group = next(g for g, keys in TRACE_GROUPS if not keys or any(k in n for k in keys))
+        by_group[group] += (e - s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": (t1 - t0) / 1e3, "device_span_ms": span / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / max(span, 1e-9),
+            "idle_share_of_window": 1.0 - busy / max(t1 - t0, 1e-9),
+            "device_events": len(dev), "device_events_under_5us": sum(
+                e - s < 5.0 for s, e, _ in dev),
+            "cpu_ops": sum(e.get("cat") == "cpu_op" for e in events),
+            "share_of_device_span": {g: ms * 1e3 / max(span, 1e-9) for g, ms in by_group.items()},
+            "gaps_over_50us": sum(g[0] > 0.05 for g in gaps),
+            "gaps_ms_total": sum(g[0] for g in gaps), "gaps": sorted(gaps, reverse=True)[:6],
+            "kernels": sorted(by_name), "top_ms": [[n[:80], ms] for n, ms in top]}
+
+
+def one_step_resident_vs_batch(out, paths, device: str = "cuda") -> dict:
+    """One train step on phase 4's first batch through
+    make_resident_epoch_runner and through the per-batch step, both
+    without augmentation, from the same weights (the epoch-1
+    checkpoint): train_step_parity's tolerances on the loss and each
+    parameter's update."""
+    import torch
+
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.data.resident import ResidentBatchLoader
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.loop import read_back
+    from tpuasr_torch.train.step import TrainConfig, make_resident_epoch_runner, make_train_step
+
+    pkg = load_checkpoint(str(out / "tpuasr_1.ckpt"))
+    entries = order_and_prune(read_manifest(paths["train"]))
+    models, losses = [], []
+    for resident in (False, True):
+        plan = make_buckets(entries, 32, BucketSpec())
+        plan.homogeneous = True
+        model = model_from_variables(pkg.variables, pkg.model_config, torch.device(device),
+                                     trainable=True)
+        step = make_train_step(model, pkg.frontend_config, TrainConfig())
+        if resident:
+            loader = ResidentBatchLoader(plan, pkg.alphabet, device=device)
+            _, bank, idx, _, valid = next(iter(loader.bucket_chunks(0)))
+            m = read_back(make_resident_epoch_runner(step)(bank, idx[:1], valid[:1], 3e-4, 0))
+            losses.append(float(m["loss"][0]))
+        else:
+            batch = next(iter(AudioBatchLoader(plan, pkg.alphabet,
+                                               transfer_dtype="int16").epoch(0)))
+            m = read_back(step(batch.waves, batch.wave_lengths, batch.labels,
+                               batch.label_lengths, batch.valid, 3e-4))
+            losses.append(float(m["loss"]))
+        models.append(dict(model.named_parameters()))
+    start = model_from_variables(pkg.variables, pkg.model_config, torch.device(device))
+    errs = {k: rel_norm_err(models[1][k].detach() - p0, models[0][k].detach() - p0)
+            for k, p0 in start.named_parameters()}
+    worst = max(errs, key=errs.get)
+    row = {"loss_batch": losses[0], "loss_resident": losses[1],
+           "loss_rel_err": abs(losses[1] - losses[0]) / abs(losses[0]),
+           "update_rel_norm_err_max": errs[worst], "worst_param": worst}
+    emit("resident_step_parity", **row)
+    check(row["loss_rel_err"] <= 1e-2 and errs[worst] <= 5e-2,
+          f"one step, resident vs per-batch: {row}")
+    return row
+
+
+def augment_step_ms(out, waves_np, lengths_np, noise_dir: str, smi: str) -> dict:
+    """The augmentation's device time in a train step (B=32 x 5 s):
+    CUDA events around ``AugmentFn.waves`` plus ``.feats`` on one batch,
+    and around the whole train step with and without it (means of 5
+    after a warm one, in turns)."""
+    import torch
+
+    from tpuasr_torch.audio.augment import AugmentConfig, make_augment_fn
+    from tpuasr_torch.audio.frontend import log_spectrogram
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.step import TrainConfig, make_train_step, step_generator
+
+    pkg = load_checkpoint(str(out / "tpuasr_1.ckpt"))
+    fn = make_augment_fn(AugmentConfig(noise_dir=noise_dir, spec_augment=True))
+    dev = torch.device("cuda")
+    waves = torch.from_numpy(waves_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev).long()
+    gen = step_generator(dev, 0, 0)
+
+    def augment_only():
+        w, lens = fn.waves(gen, waves, lengths)
+        feats, fl = log_spectrogram(w, lens, pkg.frontend_config)
+        return fn.feats(gen, feats, fl)
+
+    def frontend_only():
+        return log_spectrogram(waves, lengths, pkg.frontend_config)
+
+    model = model_from_variables(pkg.variables, pkg.model_config, dev, trainable=True)
+    steps = {k: make_train_step(model, pkg.frontend_config, TrainConfig(), a)
+             for k, a in (("plain", None), ("augment", fn))}
+    n = waves.shape[0]
+    args = (waves, lengths, torch.zeros((n, 10), dtype=torch.int32, device=dev) + 5,
+            torch.full((n,), 10, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev), 3e-4)
+    row = {"augment_and_frontend_ms": time_ms(augment_only, iters=10),
+           "frontend_ms": time_ms(frontend_only, iters=10)}
+    row["augment_ms"] = row["augment_and_frontend_ms"] - row["frontend_ms"]
+    step_ms = {"plain": [], "augment": []}
+    for k in ("plain", "augment", "augment", "plain"):
+        step_ms[k].append(time_ms(lambda: steps[k](*args, gen), iters=5))
+    row.update(step_ms_plain=float(np.mean(step_ms["plain"])),
+               step_ms_augment=float(np.mean(step_ms["augment"])), batch=list(waves.shape),
+               nvidia_smi=smi)
+    row["augment_share_of_step"] = row["augment_ms"] / row["step_ms_augment"]
+    emit("augment_step_ms", **row)
+    return row
+
+
+def warm_chunk_without_sync(loader, ckpt, noise_dir: str, smi: str,
+                            device: str = "cuda") -> dict:
+    """One warm resident chunk (augmentation on, the schedule's longest)
+    run again under torch.cuda.set_sync_debug_mode("error"): any call
+    that waits for the card inside the chunk raises; the read-back comes
+    after. Then the same chunk timed on the host clock (to its
+    read-back) without and with a StepProfiler trace over all its steps,
+    in turns: the tracer's cost a step, and the device's idle share over
+    a warm chunk (trace_summary)."""
+    import torch
+
+    from tpuasr_torch.audio.augment import AugmentConfig, make_augment_fn
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+    from tpuasr_torch.train.loop import read_back
+    from tpuasr_torch.train.step import TrainConfig, make_resident_epoch_runner, make_train_step
+
+    pkg = load_checkpoint(str(ckpt))
+    model = model_from_variables(pkg.variables, pkg.model_config, torch.device(device),
+                                 trainable=True)
+    fn = make_augment_fn(AugmentConfig(noise_dir=noise_dir, spec_augment=True))
+    runner = make_resident_epoch_runner(make_train_step(model, pkg.frontend_config,
+                                                        TrainConfig(), fn))
+    b, bank, idx, _, valid = max(loader.bucket_chunks(1), key=lambda c: len(c[2]))
+    read_back(runner(bank, idx, valid, 3e-4, 0))  # warm
+    checked = device == "cuda"
+    if checked:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = runner(bank, idx, valid, 3e-4, len(idx))
+    except RuntimeError as exc:
+        emit("sync_check", ok=False, error=str(exc)[:2000])
+        raise
+    finally:
+        if checked:
+            torch.cuda.set_sync_debug_mode(0)
+    vals = read_back(metrics)
+    row = {"bucket": b, "steps": len(idx), "sync_debug_mode": "error" if checked else None,
+           "losses_finite": bool(np.isfinite(vals["loss"]).all())}
+    emit("sync_check", ok=True, **row)
+    check(row["losses_finite"], f"a warm chunk's losses: {vals['loss']}")
+
+    from tpuasr_torch.train.profiling import StepProfiler
+
+    trace_dir = ROOT / "build" / "chip_smoke" / "trace_chunk"
+    k = len(idx)
+    ms: dict = {"plain": [], "traced": []}
+    for rep, mode in enumerate(("plain", "traced", "traced", "plain")):
+        k0 = (rep + 2) * k
+        # the window's end lies past the chunk: the trace is written after the clock stops
+        prof = StepProfiler(str(trace_dir), start=k0, stop=k0 + k + 1) if mode == "traced" else None
+        if checked:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        read_back(runner(bank, idx, valid, 3e-4, k0, prof))
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / k)
+        if prof is not None:
+            prof.close()
+            last = trace_dir / f"steps_{k0}-{k0 + k + 1}.pt.trace.json"
+    chunk = {"bucket": b, "steps": k, "step_ms_plain": ms["plain"],
+             "step_ms_traced": ms["traced"],
+             "tracer_ms_a_step": float(np.mean(ms["traced"]) - np.mean(ms["plain"])),
+             **trace_summary(last), "nvidia_smi": smi}
+    emit("profile_chunk", **chunk)
+    return {**row, "chunk": chunk}
+
+
+def phase_augment_resident(smi: str, name: str, out, paths, device: str = "cuda",
+                           width=("800", "5"), n_corpus: int = 1024, span=(2.0, 10.0),
+                           batch: int = 32, epochs: int = 2):
+    """Slice 9's paths at the flagship's width: the augmentation applies
+    on the card vs the CPU (32 x 5 s from phase 4's corpus), one step
+    resident vs per-batch, then tpuasr_torch.cli.train with
+    --device-resident-audio --augment --noise-dir --spec-augment
+    --profile-dir on a corpus of ``n_corpus`` utterances of ``span``
+    seconds (several buckets), a warm chunk under sync-debug "error",
+    the same training through AudioBatchLoader (sustained utt/s of the
+    warm epoch, resident vs loader), cli.test --device-resident-audio
+    (greedy and beam-device with a word LM) against the per-batch run on
+    ``batch`` utterances of each of two buckets, and cli.noise_inject.
+    ``device``, ``width`` and the sizes other than the defaults only
+    rehearse it on the CPU."""
+    import shutil
+
+    import tpuasr_torch.ops.beam as beam_mod
+    import tpuasr_torch.ops.ctc as ctc_mod
+    from tpuasr_torch.cli import noise_inject, synth_corpus, train_lm
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.cli import train as train_cli
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.labels import Alphabet
+
+    work = ROOT / "build" / "chip_smoke"
+    noise = synth_corpus.generate(str(work / "noise_src"), 1, 1.0, 0.0, seed=1,
+                                  make_noise=True)["noise"]
+    plan = make_buckets(order_and_prune(read_manifest(paths["train"])), batch, BucketSpec())
+    first = next(iter(AudioBatchLoader(plan, Alphabet(), transfer_dtype="float32").epoch(0)))
+    waves_np, lengths_np = first.waves, first.wave_lengths
+    emit("augment_apply", **augment_apply_checks(waves_np, lengths_np, noise, device),
+         nvidia_smi=smi)
+    one_step_resident_vs_batch(out, paths, device)
+    if device == "cuda":
+        augment_step_ms(out, waves_np, lengths_np, noise, smi)
+
+    corpus = work / "corpus_aug"
+    shutil.rmtree(corpus, ignore_errors=True)
+    t0 = time.perf_counter()
+    cp = synth_corpus.generate(str(corpus), n_corpus, None, 0.0, seed=11, make_noise=True,
+                               span=span)
+    corpus_s = time.perf_counter() - t0
+    counters = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
+    counters += [ctc_mod.ctc_alpha, ctc_mod.ctc_beta, beam_mod.beam_scan]
+    runs, launches, loaders = {}, {}, []
+    resident_loader = train_cli.ResidentBatchLoader
+
+    def capture(*a, **kw):  # keeps the CLI's loader for the sync check
+        loaders.append(resident_loader(*a, **kw))
+        return loaders[-1]
+
+    for mode in ("resident", "loader"):
+        r_out = work / f"train_{mode}"
+        shutil.rmtree(r_out, ignore_errors=True)
+        argv = ["--train-manifest", cp["train"], "--hidden-size", width[0],
+                "--hidden-layers", width[1], "--batch-size", str(batch), "--epochs", str(epochs),
+                "--model-path", str(r_out / "best.ckpt"), "--log-dir", str(r_out / "log"),
+                "--sync-every", "10", "--device", device, "--augment", "--noise-dir", cp["noise"],
+                "--spec-augment"]
+        if mode == "resident":
+            argv += ["--device-resident-audio", "--profile-dir", str(r_out / "trace")]
+        for fn in counters:  # ---- the main path starts here
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(train_cli, "ResidentBatchLoader", capture):
+            rc, lines = run_cli(train_cli.main, argv)
+        wall_s = time.perf_counter() - t0
+        launches[mode] = {fn.__name__: fn.launches for fn in counters}  # ---- and ends here
+        check(rc == 0, f"cli.train ({mode}): {lines[-5:]}")
+        rows = read_jsonl(r_out / "log" / "metrics.jsonl")
+        steps = [r for r in rows if "train/loss" in r]
+        ep = [r for r in rows if "epoch/epoch_time" in r]
+        check(steps and all(np.isfinite(r["train/loss"]) and r["train/n_ok"] > 0 for r in steps),
+              f"cli.train ({mode}): a non-finite or empty step")
+        warm = [r for r in steps if r["train/epoch"] == epochs - 1]
+        runs[mode] = {"wall_s": wall_s, "steps": len(steps), "epoch_s": [r["epoch/epoch_time"]
+                                                                          for r in ep],
+                      "warm_epoch_utt_per_s": sum(r["train/n_ok"] for r in warm)
+                      / ep[-1]["epoch/epoch_time"],
+                      "losses_first_last": [steps[0]["train/loss"], steps[-1]["train/loss"]],
+                      "launches": launches[mode], "console": lines[-2:]}
+        emit("train_augment", mode=mode, corpus_s=corpus_s, n_corpus=n_corpus,
+             span_s=list(span), **runs[mode], nvidia_smi=smi)
+    if device == "cuda":  # the GRU path's kernels and CTC's, no other RNN kernel or K3
+        used = {"bigru_forward", "bigru_backward", "ctc_alpha", "ctc_beta"}
+        res = launches["resident"]
+        check(all((v > 0) == (k in used) for k, v in res.items()),
+              f"resident training launches: {res}")
+    trace = work / "train_resident" / "trace" / "steps_10-15.pt.trace.json"
+    check(trace.is_file(), "--profile-dir wrote no trace")
+    summary = trace_summary(trace)
+    if device == "cuda":
+        names = " ".join(summary["kernels"])
+        for k in ("rnn_fwd_loop", "rnn_bwd_loop", "ctc_alpha_kernel", "ctc_beta_kernel"):
+            check(k in names, f"the trace names no {k}: {summary['kernels'][:20]}")
+    emit("profile", trace=str(trace.relative_to(ROOT)), **summary, nvidia_smi=smi)
+    chunk = warm_chunk_without_sync(loaders[0], work / "train_resident" / "best.ckpt",
+                                    cp["noise"], smi, device)["chunk"]
+
+    # evaluation: resident vs per-batch, greedy and the device beam (word
+    # LM), on two buckets of ``batch`` utterances each: both runs then
+    # decode the same batches (the per-batch plan chunks the sorted
+    # manifest across buckets; batches of other shapes round bf16
+    # products otherwise, which can flip a near tie in the beam)
+    spec = BucketSpec()
+    by_bucket: dict = {}
+    for e in order_and_prune(read_manifest(cp["all"])):
+        by_bucket.setdefault(spec.bucket_of(e.duration), []).append(e)
+    picked = [es[:batch] for _, es in sorted(by_bucket.items()) if len(es) >= batch][-2:]
+    eval_manifest = work / "eval_aug.csv"
+    eval_manifest.write_text("".join(f"{e.wav_path},{e.transcript_path}\n"
+                                     for es in picked for e in es))
+    all_rows = Path(cp["all"]).read_text().splitlines()
+    lm = str(work / "lm_aug.arpa")
+    rc, lines = run_cli(train_lm.main, ["--manifest", cp["train"], "--order", "3", "--out", lm])
+    check(rc == 0, f"cli.train_lm: {lines}")
+    evals = {}
+    for dec in ("greedy", "beam-device"):
+        outs = {}
+        for mode in ("batch", "resident"):
+            hyps = work / f"eval_{dec}_{mode}.jsonl"
+            argv = ["--model-path", str(work / "train_resident" / "best.ckpt"), "--test-manifest",
+                    str(eval_manifest), "--decoder", dec, "--batch-size", str(batch),
+                    "--save-output", str(hyps), "--timing", "--timing-repeats", "2",
+                    "--device", device]
+            if dec == "beam-device":
+                argv += ["--lm-path", lm, "--beam-width", str(BEAM_W)]
+            if mode == "resident":
+                argv.append("--device-resident-audio")
+            for fn in counters:  # ---- the main path starts here
+                fn.launches = 0
+            rc, lines = run_cli(test_cli.main, argv)
+            n = {fn.__name__: fn.launches for fn in counters}  # ---- and ends here
+            check(rc == 0, f"cli.test {dec} {mode}: {lines}")
+            outs[mode] = (parse_summary(lines), hyps.read_text(), n)
+        same = (outs["batch"][0]["wer"], outs["batch"][0]["cer"], outs["batch"][1]) == (
+            outs["resident"][0]["wer"], outs["resident"][0]["cer"], outs["resident"][1])
+        evals[dec] = {"summary": outs["resident"][0], "batch_summary": outs["batch"][0],
+                      "same_summary_and_hyps": same, "launches": outs["resident"][2]}
+        emit("eval_resident", decoder=dec, **evals[dec], nvidia_smi=smi)
+        check(same, f"cli.test {dec}: resident != per-batch")
+        if device == "cuda":
+            check(outs["resident"][2]["bigru_forward"] > 0, f"{dec}: K1f not launched")
+            if dec == "beam-device":
+                check(outs["resident"][2]["beam_scan"] > 0, "K3 not launched (resident)")
+
+    wav = all_rows[0].split(",")[0]
+    noisy = work / "noisy.wav"
+    rc, lines = run_cli(noise_inject.main, ["--input-path", wav, "--noise-path", cp["noise"],
+                                            "--output-path", str(noisy), "--device", device])
+    from scipy.io import wavfile
+
+    check(rc == 0 and noisy.is_file() and len(wavfile.read(str(noisy))[1])
+          == len(wavfile.read(wav)[1]), f"cli.noise_inject: {lines}")
+    emit("noise_inject", wav=Path(wav).name, out=str(noisy.relative_to(ROOT)))
+    return {"train": launches["resident"], "greedy": evals["greedy"]["launches"],
+            "beam": evals["beam-device"]["launches"], "runs": runs, "profile": summary,
+            "profile_chunk": chunk}
+
+
 def build_all(names) -> None:
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2401,6 +2865,7 @@ def main() -> int:
         launches[path] = (res["launches"], phase_serve(
             smi, name, path=path, ckpt=p_out / "best.ckpt", durations=(1.0, 2.2, 3.4, 5.0),
             long_request=False, warmup=(5.0,)))
+    aug = phase_augment_resident(smi, name, out, paths)
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
@@ -2410,14 +2875,17 @@ def main() -> int:
                      **{k: v for k, v in decode_res.items() if not isinstance(v, dict)}}
 
     def by_path(wrapper, **serve):
-        """A wrapper's launch counts on the three training paths (and
-        the serving paths given)."""
+        """A wrapper's launch counts on the four training paths (and
+        the serving and evaluation paths given)."""
         return {"train": train_launches[wrapper], "train_lstm": lstm_train[wrapper],
-                "train_gru2": gru2_train[wrapper], **serve}
+                "train_gru2": gru2_train[wrapper], "train_resident": aug["train"][wrapper],
+                **serve}
 
     print(json.dumps({"kernels": [
         kernel_entry("bigru_fwd", "tpuasr/ops/gru.py:71 _fwd_kernel", k1f_row["max_abs_err"],
-                     k1f_timings[0], by_path("bigru_forward", serve=serve_launches),
+                     k1f_timings[0], by_path("bigru_forward", serve=serve_launches,
+                                             test_resident_greedy=aug["greedy"]["bigru_forward"],
+                                             test_resident_beam=aug["beam"]["bigru_forward"]),
                      timings=k1f_timings, card=smi),
         kernel_entry("bigru_bwd", "tpuasr/ops/gru.py:100 _bwd_kernel", k1b_row["max_abs_err"],
                      k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
@@ -2431,7 +2899,8 @@ def main() -> int:
                      dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"],
                      timings=ctc_timing["ctc_beta"], card=smi),
         kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
-                     next(r for r in beam_timings if r["mode"] == "word"), beam_launches,
+                     next(r for r in beam_timings if r["mode"] == "word"),
+                     {**beam_launches, "test_resident_beam": aug["beam"]["beam_scan"]},
                      timings=beam_timings, limits=limit_rows, card=smi),
         kernel_entry("bilstm_fwd", "tpuasr/ops/lstm.py:62 _fwd_kernel", k4_err["bilstm_fwd"],
                      k4_timings["bilstm_fwd"][0],

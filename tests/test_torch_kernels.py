@@ -952,3 +952,96 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):  # noqa: F811
     word = _beam_lm("word", Alphabet(labels="_AB C"), "cpu")
     with pytest.raises(ValueError, match="LM tables"):
         beam_scan(lp, lengths, **kw, **word)
+
+
+@pytest.mark.cuda
+def test_augment_applies_on_the_card_match_the_cpu(cuda):  # noqa: F811
+    """Each augmentation apply on the card against the CPU with the same
+    parameters, drawn on the card: atol 1e-5 (the same f32 operations),
+    lengths equal."""
+    from tpuasr_torch.audio import augment as aug
+
+    cfg = aug.AugmentConfig(noise_prob=0.5, n_freq_masks=2, n_time_masks=2)
+    rng = np.random.RandomState(0)
+    lengths = torch.tensor([16000, 12345, 800, 1], device=cuda)
+    waves = torch.from_numpy((0.3 * rng.randn(4, 16000)).astype(np.float32)).to(cuda)
+    waves = waves * (torch.arange(16000, device=cuda)[None] < lengths[:, None])
+    bank = torch.from_numpy((0.2 * rng.randn(7001)).astype(np.float32)).to(cuda)
+    feats = torch.randn(4, 101, 161, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rates, gains = aug.draw_tempo_gain(gen, 4, cfg)
+    noise = aug.draw_noise(gen, 4, bank.shape[0], cfg)
+    freq, tmask = aug.draw_spec_augment(gen, torch.tensor([101, 80, 5, 1], device=cuda), 101,
+                                        161, cfg)
+    for mode in ("wsola", "resample"):
+        got = aug.tempo_and_gain(rates, gains, waves, lengths, aug.AugmentConfig(tempo_mode=mode))
+        want = aug.tempo_and_gain(rates.cpu(), gains.cpu(), waves.cpu(), lengths.cpu(),
+                                  aug.AugmentConfig(tempo_mode=mode))
+        assert (got[0].cpu() - want[0]).abs().max() <= 1e-5
+        assert torch.equal(got[1].cpu(), want[1])
+    got = aug.inject_noise(*noise, waves, lengths, bank)
+    want = aug.inject_noise(*(t.cpu() for t in noise), waves.cpu(), lengths.cpu(), bank.cpu())
+    assert (got.cpu() - want).abs().max() <= 1e-5
+    got = aug.spec_augment(freq, tmask, feats)
+    want = aug.spec_augment([[t.cpu() for t in m] for m in freq],
+                            [[t.cpu() for t in m] for m in tmask], feats.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_resident_chunk_runs_without_a_sync_and_equals_the_per_batch_steps(cuda):  # noqa: F811
+    """A tiny model's augmented resident chunk (two steps) under
+    sync-debug "error" equals the same two per-batch steps bit for bit."""
+    from types import SimpleNamespace
+
+    from tpuasr_torch.audio.augment import AugmentConfig, make_augment_fn
+    from tpuasr_torch.audio.frontend import FrontendConfig
+    from tpuasr_torch.compat.weights import init_train_variables, model_from_variables
+    from tpuasr_torch.model.ds2 import ModelConfig
+    from tpuasr_torch.train.loop import read_back
+    from tpuasr_torch.train.step import (
+        TrainConfig,
+        make_resident_epoch_runner,
+        make_train_step,
+        step_generator,
+    )
+
+    cfg = ModelConfig(hidden_size=32, hidden_layers=1, rnn_impl="pallas")
+    variables = init_train_variables(cfg, seed=1)
+    rng = np.random.RandomState(2)
+    bank = SimpleNamespace(
+        waves=torch.from_numpy((rng.randn(6, 16000) * 3000).astype(np.int16)).to(cuda),
+        wave_lengths=torch.tensor([16000, 15000, 9000, 16000, 12000, 8000],
+                                  dtype=torch.int32, device=cuda),
+        labels=torch.from_numpy(rng.randint(1, 30, (6, 30)).astype(np.int32)).to(cuda),
+        label_lengths=torch.tensor([20, 18, 9, 25, 12, 7], dtype=torch.int32, device=cuda))
+    idx = np.array([[0, 2, 4], [5, 1, 1]], np.int32)
+    valid = np.array([[True, True, True], [True, True, False]])
+    fn = make_augment_fn(AugmentConfig(spec_augment=True))
+    steps = []
+    for resident in (True, False):
+        model = model_from_variables(variables, cfg, cuda, trainable=True)
+        step = make_train_step(model, FrontendConfig(), TrainConfig(), fn)
+        if resident:
+            runner = make_resident_epoch_runner(step, seed=9)
+            read_back(runner(bank, idx, valid, 3e-4, 0))  # warm
+            model = model_from_variables(variables, cfg, cuda, trainable=True)
+            runner = make_resident_epoch_runner(
+                make_train_step(model, FrontendConfig(), TrainConfig(), fn), seed=9)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics = runner(bank, idx, valid, 3e-4, 0)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            steps.append(read_back(metrics)["loss"].tolist())
+        else:
+            losses = []
+            for k in range(2):
+                rows = torch.from_numpy(idx[k]).long().to(cuda)
+                m = step(bank.waves[rows], bank.wave_lengths[rows], bank.labels[rows],
+                         bank.label_lengths[rows], torch.from_numpy(valid[k]).to(cuda), 3e-4,
+                         step_generator(cuda, 9, k))
+                losses.append(float(m["loss"]))
+            steps.append(losses)
+    assert steps[0] == steps[1] and all(np.isfinite(steps[0]))

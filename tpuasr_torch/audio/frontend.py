@@ -152,6 +152,16 @@ def frame_signal(waves: torch.Tensor, lengths: torch.Tensor, n_fft: int,
     return torch.where(onehot, last_frame[:, None, :], frames)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_consts(window: str, n_fft: int, device: torch.device):
+    """The window and the DFT basis on ``device``, copied there once: a
+    blocking copy on every call would make each step wait for the card.
+    Made outside inference mode, so that any caller may use them."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(_window_np(window, n_fft)).to(device),
+                torch.from_numpy(_dft_mat_combined(n_fft)).to(device))
+
+
 def log_spectrogram(waves: torch.Tensor, lengths: torch.Tensor,
                     cfg: FrontendConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded waveform batch -> normalized log-spectrogram batch.
@@ -169,8 +179,9 @@ def log_spectrogram(waves: torch.Tensor, lengths: torch.Tensor,
     lengths = lengths.to(device=waves.device, dtype=torch.int64)
     dev = waves.device
     frames = frame_signal(waves, lengths, cfg.n_fft, cfg.hop)
-    frames = frames * torch.from_numpy(_window_np(cfg.window, cfg.n_fft)).to(dev)
-    z = torch.matmul(frames, torch.from_numpy(_dft_mat_combined(cfg.n_fft)).to(dev))
+    window, dft = _device_consts(cfg.window, cfg.n_fft, dev)
+    frames = frames * window
+    z = torch.matmul(frames, dft)
     f = cfg.n_features
     re, im = z[..., :f], z[..., f:]
     feats = torch.log1p(torch.sqrt(re * re + im * im + 1e-30))

@@ -46,7 +46,9 @@ def _render(words: list[str], duration: float, rng) -> np.ndarray:
 
 def generate(out_dir: str, n: int, duration: float | None,
              val_fraction: float, seed: int,
-             make_noise: bool = False) -> dict:
+             make_noise: bool = False, span: tuple = (0.6, 1.7)) -> dict:
+    """Write the corpus; without a fixed ``duration`` each utterance's
+    is uniform in ``span`` seconds."""
     from scipy.io import wavfile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -55,7 +57,7 @@ def generate(out_dir: str, n: int, duration: float | None,
     for i in range(n):
         n_words = int(rng.randint(2, 5))
         words = [WORDS[rng.randint(len(WORDS))] for _ in range(n_words)]
-        dur = duration if duration else float(rng.uniform(0.6, 1.7))
+        dur = duration if duration else float(rng.uniform(*span))
         wave = _render(words, dur, rng)
         wav = os.path.join(out_dir, f"utt{i:04d}.wav")
         txt = os.path.join(out_dir, f"utt{i:04d}.txt")

@@ -5,7 +5,13 @@ beam, or K3 with word or char LM fusion), and prints the reference's
 ``Test Summary`` line of average WER and CER; ``--save-output`` dumps
 hypotheses and references as JSON lines, ``--timing`` the eval's wall
 time and utterances per second (of the last of ``--timing-repeats``
-passes, the warm one).
+passes, the warm one). ``--device-resident-audio`` packs the manifest
+into device memory once; greedy and ``beam-device`` then run a bucket's
+batches as one chunk (``decode/resident_eval.py``), other decoders
+batch by batch from the resident corpus. On the same batches the output
+is the same; the resident plan keeps batches within a bucket, so where
+the per-batch plan's batches span buckets, bf16 logits padded otherwise
+can resolve a near tie in the beam another way.
 
 Usage:
   python -m tpuasr_torch.cli.test --model-path m.ckpt --test-manifest val.csv \\
@@ -31,7 +37,9 @@ from tpuasr_torch.compat.weights import model_from_variables
 from tpuasr_torch.data.buckets import BucketSpec, make_buckets
 from tpuasr_torch.data.loader import AudioBatchLoader
 from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+from tpuasr_torch.data.resident import ResidentBatchLoader
 from tpuasr_torch.decode.metrics import ErrorRateMeter
+from tpuasr_torch.decode.resident_eval import ResidentEvaluator, supports_resident_eval
 from tpuasr_torch.device import resolve_device
 from tpuasr_torch.train.checkpoint import load_checkpoint
 from tpuasr_torch.train.step import make_eval_step
@@ -45,7 +53,8 @@ def main(argv=None) -> int:
     p.add_argument("--num-workers", type=int, default=2,
                    help="host prefetch depth (reference: dataloader workers)")
     p.add_argument("--device-resident-audio", action="store_true",
-                   help="pack the eval corpus into device memory once (not ported yet)")
+                   help="pack the eval corpus into device memory once; batches "
+                   "assemble by a gather on the device")
     p.add_argument("--transfer-dtype", default="int16", choices=["int16", "float32"])
     p.add_argument("--save-output", default=None,
                    help="write per-utterance hyp/ref JSONL here")
@@ -58,10 +67,6 @@ def main(argv=None) -> int:
     add_runtime_args(p)
     args = p.parse_args(argv)
 
-    if args.device_resident_audio:
-        raise NotImplementedError(
-            "--device-resident-audio is not yet ported (ROADMAP.md §1.2: "
-            "augmentation and the device-resident corpus)")
     device = resolve_device(args.device)
     pkg = load_checkpoint(args.model_path)
     alphabet = pkg.alphabet
@@ -71,27 +76,40 @@ def main(argv=None) -> int:
     decoder = build_decoder(args, alphabet)
 
     entries = order_and_prune(read_manifest(args.test_manifest))
-    plan = make_buckets(entries, args.batch_size,
-                        BucketSpec(sample_rate=pkg.frontend_config.sample_rate),
+    sample_rate = pkg.frontend_config.sample_rate
+    plan = make_buckets(entries, args.batch_size, BucketSpec(sample_rate=sample_rate),
                         shuffle=False)
-    loader = AudioBatchLoader(plan, alphabet, sample_rate=pkg.frontend_config.sample_rate,
-                              prefetch=args.num_workers, transfer_dtype=args.transfer_dtype)
+    if args.device_resident_audio:
+        loader = ResidentBatchLoader(plan, alphabet, sample_rate=sample_rate, device=device)
+    else:
+        loader = AudioBatchLoader(plan, alphabet, sample_rate=sample_rate,
+                                  prefetch=args.num_workers, transfer_dtype=args.transfer_dtype)
+
+    evaluator = None
+    if args.device_resident_audio and supports_resident_eval(decoder):
+        evaluator = ResidentEvaluator(model, pkg.frontend_config, decoder)
+
+    def pairs():
+        """(hypothesis, reference) per utterance, shortest first."""
+        if evaluator is not None:
+            yield from evaluator.pairs(loader)
+            return
+        for batch in loader.epoch(0):
+            logits, out_lengths = eval_step(batch.waves, batch.wave_lengths)
+            hyps = decoder.decode(logits, out_lengths)
+            # batch padding (valid False) is the batch's tail
+            yield from zip(hyps[:batch.size], batch.texts[:batch.size])
 
     out_f = open(args.save_output, "w") if args.save_output else None
     for _ in range(max(args.timing_repeats, 1)):
         meter = ErrorRateMeter()
         t_eval0 = time.time()
-        for batch in loader.epoch(0):
-            logits, out_lengths = eval_step(batch.waves, batch.wave_lengths)
-            hyps = decoder.decode(logits, out_lengths)
-            for j, (hyp, ref) in enumerate(zip(hyps, batch.texts)):
-                if not batch.valid[j]:
-                    continue
-                meter.update(hyp, ref)
-                if args.verbose:
-                    print(f"Ref: {ref}\nHyp: {hyp}\n")
-                if out_f:
-                    out_f.write(json.dumps({"ref": ref, "hyp": hyp}, ensure_ascii=False) + "\n")
+        for hyp, ref in pairs():
+            meter.update(hyp, ref)
+            if args.verbose:
+                print(f"Ref: {ref}\nHyp: {hyp}\n")
+            if out_f:
+                out_f.write(json.dumps({"ref": ref, "hyp": hyp}, ensure_ascii=False) + "\n")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.time() - t_eval0

@@ -5,9 +5,13 @@ Usage:
   python -m tpuasr_torch.cli.train --train-manifest train.csv \
       --val-manifest val.csv --epochs 70 --checkpoint [--device cuda|cpu]
 
-Flags of paths not ported yet (data parallelism and tensor parallelism,
-the device-resident corpus, augmentation, the profiler) parse and then
-raise NotImplementedError naming their ROADMAP.md item. ``--rnn-type``
+``--augment`` (WSOLA tempo and gain), ``--speed-perturb`` (resampled
+speed and gain), ``--noise-dir`` (noise injection), ``--spec-augment``,
+``--device-resident-audio`` (the corpus packed into device memory, a
+chunk of steps per bucket) and ``--profile-dir`` (a trace of steps
+10-15) work as in the JAX package. The flags of paths not ported yet
+(data parallelism and tensor parallelism) parse and then raise
+NotImplementedError naming their ROADMAP.md item. ``--rnn-type``
 and ``--rnn-impl`` pick the recurrent kernel (``gru`` runs K1 under
 ``scan``/``pallas`` and K5 under ``pallas2``; ``lstm`` runs K4);
 ``--ctc-impl`` is recorded in the checkpoint, and the port runs one CTC
@@ -19,6 +23,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from tpuasr_torch.audio.augment import AugmentConfig, make_augment_fn
 from tpuasr_torch.cli.opts import (
     add_audio_args,
     add_device_arg,
@@ -30,6 +35,7 @@ from tpuasr_torch.cli.opts import (
 from tpuasr_torch.data.buckets import BucketSpec, make_buckets
 from tpuasr_torch.data.loader import AudioBatchLoader
 from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+from tpuasr_torch.data.resident import ResidentBatchLoader
 from tpuasr_torch.train.loop import LoopConfig, train
 from tpuasr_torch.train.step import TrainConfig
 
@@ -56,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false", default=True)
     p.add_argument("--min-duration", type=float, default=None)
     p.add_argument("--max-duration", type=float, default=None)
-    # augmentation (not ported yet)
+    # augmentation (on the device, in the train step)
     p.add_argument("--augment", action="store_true")
     p.add_argument("--speed-perturb", action="store_true")
     p.add_argument("--noise-dir", default=None)
@@ -106,19 +112,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.world_size > 1, "--world-size > 1", "distributed"),
-        (args.mesh_tp > 1, "--mesh-tp > 1", "distributed"),
-        (args.device_resident_audio, "--device-resident-audio",
-         "augmentation and the device-resident corpus"),
-        (args.augment or args.speed_perturb or args.noise_dir or args.spec_augment,
-         "--augment/--speed-perturb/--noise-dir/--spec-augment",
-         "augmentation and the device-resident corpus"),
-        (args.profile_dir, "--profile-dir", "profiling (performance work)"),
+        (args.world_size > 1, "--world-size > 1"),
+        (args.mesh_tp > 1, "--mesh-tp > 1"),
     ]
-    for hit, flag, item in unported:
+    for hit, flag in unported:
         if hit:
             raise NotImplementedError(
-                f"{flag} is not yet ported (ROADMAP.md §1: {item})")
+                f"{flag} is not yet ported (ROADMAP.md §1.6: distributed)")
 
 
 def main(argv=None) -> int:
@@ -134,7 +134,7 @@ def main(argv=None) -> int:
         save_folder=args.save_folder if args.checkpoint else None,
         model_path=args.model_path, checkpoint_per_batch=args.checkpoint_per_batch,
         log_dir=args.log_dir, tensorboard=args.tensorboard, quiet=args.quiet,
-        sync_every=args.sync_every, eval_every=args.eval_every)
+        profile_dir=args.profile_dir, sync_every=args.sync_every, eval_every=args.eval_every)
 
     spec = BucketSpec(sample_rate=args.sample_rate)
     train_entries = order_and_prune(read_manifest(args.train_manifest),
@@ -142,19 +142,31 @@ def main(argv=None) -> int:
                                     max_duration=args.max_duration)
     plan = make_buckets(train_entries, args.batch_size, spec, seed=args.seed,
                         sorta_grad=args.sorta_grad, shuffle=args.shuffle)
-    train_loader = AudioBatchLoader(plan, alphabet, sample_rate=args.sample_rate,
-                                    prefetch=args.num_workers,
-                                    cache_audio=args.cache_audio,
-                                    transfer_dtype=args.transfer_dtype)
+    if args.device_resident_audio:
+        train_loader = ResidentBatchLoader(plan, alphabet, sample_rate=args.sample_rate,
+                                           device=args.device)
+    else:
+        train_loader = AudioBatchLoader(plan, alphabet, sample_rate=args.sample_rate,
+                                        prefetch=args.num_workers,
+                                        cache_audio=args.cache_audio,
+                                        transfer_dtype=args.transfer_dtype)
     val_loader = None
     if args.val_manifest:
         val_plan = make_buckets(order_and_prune(read_manifest(args.val_manifest)),
                                 args.batch_size, spec, shuffle=False)
         val_loader = AudioBatchLoader(val_plan, alphabet, sample_rate=args.sample_rate,
                                       prefetch=args.num_workers)
+    augment_fn = None
+    if args.augment or args.speed_perturb or args.noise_dir or args.spec_augment:
+        augment_fn = make_augment_fn(AugmentConfig(
+            tempo_gain=args.augment or args.speed_perturb,
+            tempo_mode="resample" if args.speed_perturb else "wsola",
+            noise_dir=args.noise_dir, noise_prob=args.noise_prob, noise_min=args.noise_min,
+            noise_max=args.noise_max, spec_augment=args.spec_augment),
+            sample_rate=args.sample_rate)
     train(model_cfg, frontend_cfg, train_cfg, loop_cfg, train_loader, val_loader,
           alphabet, continue_from=args.continue_from, finetune=args.finetune,
-          device=args.device)
+          device=args.device, augment_fn=augment_fn)
     return 0
 
 

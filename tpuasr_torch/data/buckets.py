@@ -7,6 +7,8 @@ package. Epoch 0 runs in duration-sorted order (SortaGrad); later
 epochs shuffle within each bucket and then the batch order, from a
 numpy ``RandomState(seed + epoch)`` used exactly as the JAX package
 uses it, so both packages train on the same batches in the same order.
+A ``homogeneous`` plan keeps epoch 0's batches within one bucket too
+(the device-resident corpus pads each utterance to its own bucket).
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ class BatchPlanEntry:
 @dataclass
 class BucketingPlan:
     """An epoch-indexed batch schedule over duration-annotated manifest
-    entries: ``batches(epoch)`` lists BatchPlanEntry in training order."""
+    entries: ``batches(epoch)`` lists BatchPlanEntry in training order,
+    ``sharded_batches(epoch, rank, world)`` a rank's share of it."""
 
     entries: list
     batch_size: int
@@ -67,6 +70,11 @@ class BucketingPlan:
     seed: int = 0
     sorta_grad: bool = True
     shuffle: bool = True
+    # homogeneous=True keeps every batch within ONE bucket in the sorted
+    # (epoch-0 SortaGrad) pass as well: each bucket's duration-sorted
+    # members are chunked apart, buckets shortest first, so the
+    # curriculum holds with less padding. The resident loader needs it.
+    homogeneous: bool = False
 
     def __post_init__(self):
         self._durations = np.array([e.duration for e in self.entries], dtype=np.float64)
@@ -95,10 +103,27 @@ class BucketingPlan:
         rng.shuffle(out)
         return out
 
+    def _sorted_batches(self) -> list[BatchPlanEntry]:
+        if not self.homogeneous:
+            return self._chunks(self._order)
+        out = []
+        for b in range(self.spec.n_buckets):
+            out += self._chunks(self._order[self._bucket_ids[self._order] == b], b)
+        return out
+
     def batches(self, epoch: int) -> list[BatchPlanEntry]:
         if (epoch == 0 and self.sorta_grad) or not self.shuffle:
-            return self._chunks(self._order)
+            return self._sorted_batches()
         return self._bucketed_batches(np.random.RandomState(self.seed + epoch))
+
+    def sharded_batches(self, epoch: int, rank: int, world: int) -> list[BatchPlanEntry]:
+        """Every rank sees the same schedule and takes batches
+        [rank::world]; trailing batches that do not divide evenly are
+        dropped, so every rank steps the same number of times. At world
+        1 it is ``batches(epoch)``."""
+        all_b = self.batches(epoch)
+        n = (len(all_b) // world) * world
+        return all_b[rank:n:world]
 
 
 def make_buckets(entries: list, batch_size: int, spec: BucketSpec | None = None,

@@ -32,9 +32,12 @@ class Batch:
     valid: np.ndarray  # (B,) bool: False for batch-padding repeats
     bucket: int
     texts: list  # reference transcripts (for eval)
+    n_valid: int | None = None  # set when the fields are device tensors
 
     @property
     def size(self) -> int:
+        if self.n_valid is not None:  # no read-back from the device
+            return self.n_valid
         return int(self.valid.sum())
 
 

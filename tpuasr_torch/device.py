@@ -25,3 +25,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array (or CPU tensor) on ``device``. On a card the copy is
+    asynchronous from pinned memory: the host queues it and goes on,
+    where a blocking copy would wait for everything queued before it."""
+    t = torch.as_tensor(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

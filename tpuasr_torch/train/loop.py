@@ -1,5 +1,4 @@
-"""Epoch training loop (port of ``tpuasr/train/loop.py``, the per-batch
-path).
+"""Epoch training loop (port of ``tpuasr/train/loop.py``).
 
 SortaGrad epoch schedule, per-iteration loss logging with a deferred
 host sync, per-epoch greedy validation WER/CER, the learning rate
@@ -7,6 +6,17 @@ annealed per epoch, per-epoch and per-batch checkpoints, best-model
 tracking, ``--continue-from`` exact resume (mid-epoch too) and
 ``--finetune`` (weights only). Checkpoints are ``.tpuasr`` files that
 the JAX package reads and resumes, and vice versa.
+
+Augmentation (``augment_fn``) draws per step from
+``step_generator(device, seed, iteration)``, a function of the global
+step, so a mid-epoch resume draws what the continuous run drew. With a
+device-resident corpus (a loader with ``bucket_chunks``) each bucket's
+schedule trains as one chunk (``make_resident_epoch_runner``): one index
+copy in, the steps queued with nothing read back, one read-back of the
+chunk's metrics. ``--checkpoint-per-batch N`` caps a chunk at N steps
+with a checkpoint after each; preemption is checked between chunks.
+Validation stays on the per-batch loader. ``profile_dir`` traces global
+steps [10, 15) with ``train.profiling.StepProfiler``.
 
 ``model_path`` is written as the JAX package writes it: after a
 validation whose WER is no worse than the best so far, and also after an
@@ -39,7 +49,14 @@ from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import ModelConfig
 from tpuasr_torch.train.checkpoint import CheckpointPackage, load_checkpoint, save_checkpoint
 from tpuasr_torch.train.logging import AverageMeter, MetricsLogger
-from tpuasr_torch.train.step import TrainConfig, make_eval_step, make_train_step
+from tpuasr_torch.train.profiling import StepProfiler
+from tpuasr_torch.train.step import (
+    TrainConfig,
+    make_eval_step,
+    make_resident_epoch_runner,
+    make_train_step,
+    step_generator,
+)
 
 
 @dataclass
@@ -53,6 +70,7 @@ class LoopConfig:
     log_dir: str | None = None
     tensorboard: bool = False
     quiet: bool = False
+    profile_dir: str | None = None  # a torch.profiler trace of steps 10-15
     # metrics stay on the device and are read (a blocking sync) every
     # N steps; 1 reproduces the reference's per-iteration readout
     sync_every: int = 10
@@ -104,16 +122,25 @@ def evaluate(eval_step, loader: AudioBatchLoader,
     return meter.wer, meter.cer, 0.0
 
 
+def read_back(metrics: dict) -> dict:
+    """Metrics tensors (0-d, or stacked over a chunk) as host float64
+    arrays, in one copy from the device."""
+    vals = torch.stack([v.to(torch.float64) for v in metrics.values()]).cpu().numpy()
+    return dict(zip(metrics, vals))
+
+
 def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: TrainConfig,
           loop_cfg: LoopConfig, train_loader: AudioBatchLoader,
           val_loader: AudioBatchLoader | None, alphabet: Alphabet,
           continue_from: str | None = None, finetune: bool = False,
-          device: str | torch.device = "cuda") -> CheckpointPackage:
+          device: str | torch.device = "cuda", augment_fn=None) -> CheckpointPackage:
     """Train on ``device`` (CUDA unless the CPU is asked for) and return
     the last checkpoint package. A fresh model is drawn from flax's init
     distributions with ``loop_cfg.seed``; ``continue_from`` adopts the
     checkpoint's model, frontend and alphabet, and unless ``finetune``
-    its optimizer state, progress and histories."""
+    its optimizer state, progress and histories. ``augment_fn`` (an
+    ``audio.augment.AugmentFn``) augments every training batch; a
+    ``data.resident.ResidentBatchLoader`` trains a chunk per bucket."""
     dev = resolve_device(device)
     logger = MetricsLogger(loop_cfg.log_dir, loop_cfg.tensorboard, loop_cfg.quiet)
     start_epoch, iteration, start_batch = 0, 0, 0
@@ -127,9 +154,13 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
     else:
         variables = init_train_variables(model_cfg, seed=loop_cfg.seed)
     model = model_from_variables(variables, model_cfg, dev, trainable=True)
-    train_step = make_train_step(model, frontend_cfg, train_cfg)
+    train_step = make_train_step(model, frontend_cfg, train_cfg, augment_fn)
     eval_step = make_eval_step(model, frontend_cfg)
     optimizer = train_step.optimizer
+    use_epoch_scan = hasattr(train_loader, "bucket_chunks")
+    if use_epoch_scan:
+        epoch_runner = make_resident_epoch_runner(train_step, seed=loop_cfg.seed)
+    gen = torch.Generator(device=dev) if augment_fn is not None else None
     if pkg is not None and not finetune:  # exact resume
         if pkg.opt_state is not None:
             load_momentum(model, optimizer, pkg.opt_state)
@@ -147,6 +178,7 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
             loss_history=histories["loss"], wer_history=histories["wer"],
             cer_history=histories["cer"], best_wer=best_wer)
 
+    profiler = StepProfiler(loop_cfg.profile_dir)
     guard = PreemptionGuard()
     pkg = make_pkg(start_epoch, start_batch)
     epoch, epoch_done = start_epoch, start_batch
@@ -165,7 +197,8 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
                     return
                 # read first: the values wait for every queued step, so
                 # the window's wall time is throughput, not dispatch rate
-                rows = [(it, {k: float(v) for k, v in m.items()}, n) for it, _, m, n in pending]
+                rows = [(it, {k: float(v) for k, v in read_back(m).items()}, n)
+                        for it, _, m, n in pending]
                 wall = time.time() - window_t0
                 per_step, per_data = wall / len(rows), window_data / len(rows)
                 for it, vals, n in rows:
@@ -186,26 +219,75 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
             # the schedule is a function of (seed, epoch)
             resume_skip = start_batch if epoch == start_epoch else 0
             epoch_done = resume_skip
-            for i, batch in enumerate(train_loader.epoch(epoch)):
-                if i < resume_skip:
-                    continue
-                if guard.triggered:
-                    raise _PreemptionExit
-                window_data += time.time() - t_prev
-                metrics = train_step(batch.waves, batch.wave_lengths, batch.labels,
-                                     batch.label_lengths, batch.valid, lr)
-                iteration += 1
-                epoch_done = i + 1
-                pending.append((iteration, i, metrics, batch.size))
-                t_prev = time.time()
-                if len(pending) >= max(loop_cfg.sync_every, 1):
-                    drain()
-                if (loop_cfg.checkpoint_per_batch and loop_cfg.save_folder
-                        and (i + 1) % loop_cfg.checkpoint_per_batch == 0):
-                    drain()
-                    save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{i + 1}.ckpt",
-                                    make_pkg(epoch, i + 1))
-            drain()
+            if use_epoch_scan:
+                cap = loop_cfg.checkpoint_per_batch
+                pos = 0  # batches of this epoch's schedule seen so far
+                for b, bank, idx_mat, n_valid, valid_mat in train_loader.bucket_chunks(epoch):
+                    n_bucket = idx_mat.shape[0]
+                    # --checkpoint-per-batch N caps a chunk at N batches
+                    # (saves and preemption are host events); 0 = one
+                    # chunk per bucket
+                    for s in range(0, n_bucket, cap) if cap else (0,):
+                        e = min(s + cap, n_bucket) if cap else n_bucket
+                        lo, pos = pos, pos + e - s
+                        if pos <= resume_skip:
+                            continue  # consumed before the resume point
+                        # a checkpoint from another cap or path: slice
+                        # off the consumed rows
+                        r0 = s + max(resume_skip - lo, 0)
+                        if guard.triggered:
+                            raise _PreemptionExit
+                        k = e - r0
+                        t0 = time.time()
+                        vals = read_back(epoch_runner(bank, idx_mat[r0:e], valid_mat[r0:e], lr,
+                                                      iteration, profiler))
+                        wall = time.time() - t0
+                        per_step = wall / k
+                        for j in range(k):
+                            iteration += 1
+                            loss_meter.update(float(vals["loss"][j]), n=int(n_valid[r0 + j]))
+                            logger.log(iteration, {**{kk: float(v[j]) for kk, v in vals.items()},
+                                                   "lr": lr, "epoch": epoch,
+                                                   "step_time": per_step, "data_time": 0.0},
+                                       prefix="train/")
+                        epoch_done += k
+                        logger.console(
+                            f"Epoch {epoch} bucket {b} [{epoch_done}/{n_total}] "
+                            f"loss {loss_meter.val:.4f} (avg {loss_meter.avg:.4f}) "
+                            f"step {per_step * 1e3:.0f}ms "
+                            f"({int(n_valid[r0:e].sum()) / max(wall, 1e-9):.1f} utt/s)")
+                        logger.flush()
+                        if cap and loop_cfg.save_folder:
+                            save_checkpoint(
+                                f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{epoch_done}.ckpt",
+                                make_pkg(epoch, epoch_done))
+                        if guard.triggered:
+                            raise _PreemptionExit
+            else:
+                for i, batch in enumerate(train_loader.epoch(epoch)):
+                    if i < resume_skip:
+                        continue
+                    if guard.triggered:
+                        raise _PreemptionExit
+                    window_data += time.time() - t_prev
+                    if gen is not None:
+                        step_generator(dev, loop_cfg.seed, iteration, gen)
+                    profiler.maybe_start(iteration)
+                    metrics = train_step(batch.waves, batch.wave_lengths, batch.labels,
+                                         batch.label_lengths, batch.valid, lr, gen)
+                    iteration += 1
+                    epoch_done = i + 1
+                    profiler.maybe_stop(iteration)
+                    pending.append((iteration, i, metrics, batch.size))
+                    t_prev = time.time()
+                    if len(pending) >= max(loop_cfg.sync_every, 1):
+                        drain()
+                    if (loop_cfg.checkpoint_per_batch and loop_cfg.save_folder
+                            and (i + 1) % loop_cfg.checkpoint_per_batch == 0):
+                        drain()
+                        save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{i + 1}.ckpt",
+                                        make_pkg(epoch, i + 1))
+                drain()
 
             histories["loss"].append(loss_meter.avg)
             wer, cer = float("nan"), float("nan")
@@ -240,5 +322,6 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
                            "nothing persisted)")
     finally:
         guard.restore()
+    profiler.close()
     logger.close()
     return pkg
