@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """GPU smoke run of tpuasr_torch: the training, beam-search evaluation
 and batch serving paths on one card, for the BiGRU flagship and for its
-BiLSTM and gate-major BiGRU variants.
+BiLSTM and gate-major BiGRU variants, and the unidirectional flagship's
+training, serving and live streaming.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]`` only times the
-device-beam path from a work directory a full run left: time_beam_path.)
+device-beam path from a work directory a full run left: time_beam_path.
+``python3 chip_smoke.py --stream-only`` runs phase 10 alone, on a corpus
+and word LM of its own, and prints no result line.)
 
 Phases, one JSON line each; any failure raises and the run exits
 non-zero without printing a result:
@@ -140,13 +143,47 @@ non-zero without printing a result:
                word trigram, on 32 utterances of each of two buckets,
                printing what the per-batch run prints (K3 launched); and
                cli.noise_inject writing a WAV.
- 10. a {"kernels": [...]} line (all nine kernels, launches by path),
-     then the nvidia-smi line, then the last line
-     {"ok": true, "device": {...}}.
+ 10. stream  — slice 10's paths. K1f, K1b, K4f and K4b with one direction
+               (D=1, B=32, H=800, bf16, T'=251 and 826) against their plain
+               loops with the tolerances below, the autograd functions too
+               at T'=251, timed beside cuDNN's unidirectional nn.GRU and
+               nn.LSTM and the bounds, with their launch plans. Then the
+               unidirectional flagship (5 GRU-800 layers, lookahead 20,
+               bf16) through tpuasr_torch.cli.train --no-bidirectional
+               --lookahead-context 20 for one epoch on phase 4's corpus
+               (every loss finite, K1f, K1b, K2a and K2b launched, no other
+               RNN kernel), one train step kernels vs plain, its checkpoint
+               served as in phase 7 (K1f launched, a 32 x 5 s batch vs the
+               plain loop); one 20 s stream through StreamingTranscriber
+               against the offline model on the same wave (normalize off;
+               serve_parity's bf16 tolerances); the device beam engine (K3
+               stateful, launched) against the host engine with the word
+               trigram of phase 6 (same text and offsets; the model's
+               head scaled by BEAM_HEAD_GAIN, so that the one-epoch
+               model's near-uniform posteriors hold no near-ties that
+               f64 and f32 scores break apart); ms per warm
+               tick at 8 streams, greedy and device beam, with the share
+               of the plain chunk recurrence, and a warm tick under
+               sync-debug "error" stopping first at its one read-back
+               (then retried in full); then cli.serve --streaming
+               --max-streams 8 (greedy, and --decoder beam
+               --stream-beam-impl device) started as processes and each
+               driven by scripts/stream_load_test.py --streams 8 --seconds
+               20 (x_realtime, feed and close latencies), every stream
+               finished, both servers stopped.
+ 11. a {"kernels": [...]} line (all nine kernels, launches by path, the
+     RNN kernels' D=1 times beside them), then the nvidia-smi line, then
+     the last line {"ok": true, "device": {...}}.
 
 Which kernel runs the time loop (tpuasr_torch/model/ds2.py): a GRU
 runs K1 under rnn_impl scan and pallas and K5 under pallas2; an LSTM
-runs K4 under every impl.
+runs K4 under every impl; a unidirectional GRU or LSTM runs K1 or K4
+with one direction; the streaming step's chunk recurrence is a plain
+loop (tpuasr_torch/stream.py _rnn_chunk), as tpuasr's is a lax.scan.
+Streamed vs offline logits on the card: serve_parity's bf16 bounds
+(mean-abs <= 1e-2, max-abs <= 0.25, argmax agreement >= 0.98), since
+the chunk loop rounds its products and gates to bf16 where K1f keeps
+f32 gate math, and the difference passes through 5 layers.
 
 Tolerances. BiGRU kernel vs plain: f32 max-abs <= 1e-4 (both sum the
 same f32 products in different orders); bf16 max-abs <= 3e-2 and
@@ -1233,9 +1270,13 @@ RNN_PATHS = {
              "bilstm_reference", ("k4f", "k4b")),
     "gru2": ("tpuasr_torch.ops.gru2", "bigru2_forward", "bigru2_backward", "BiGRU2Function",
              "bigru2_reference", ("k5f", "k5b")),
+    # unidirectional GRU with a Lookahead layer: K1 with one direction
+    "uni": ("tpuasr_torch.ops.gru", "bigru_forward", "bigru_backward", "BiGRUFunction",
+            "bigru_reference", ("k1f", "k1b")),
 }
 # the train CLI's flags of each path
-RNN_FLAGS = {"gru": (), "lstm": ("--rnn-type", "lstm"), "gru2": ("--rnn-impl", "pallas2")}
+RNN_FLAGS = {"gru": (), "lstm": ("--rnn-type", "lstm"), "gru2": ("--rnn-impl", "pallas2"),
+             "uni": ("--no-bidirectional", "--lookahead-context", "20")}
 
 
 def rnn_path(path: str):
@@ -2158,12 +2199,14 @@ def post(url: str, body: bytes, out: dict) -> None:
 
 def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None, path: str = "gru",
                 ckpt=None, durations=(1.0, 1.6, 2.2, 2.9, 3.4, 4.1, 4.6, 5.0),
-                long_request: bool = True, warmup=(5.0, 16.5)):
+                long_request: bool = True, warmup=(5.0, 16.5), full_batch: bool = False):
     """The serving main path of one model path of RNN_PATHS: ``ckpt``
     (a trained checkpoint), else a seeded full-width flagship checkpoint
     of ``cfg``, answering concurrent requests of ``durations`` seconds
     (and one 20 s long-form request). ``device``/``cfg`` other than the
-    defaults only rehearse the phase on the CPU at a small width."""
+    defaults only rehearse the phase on the CPU at a small width. With
+    ``full_batch`` the kernel-vs-plain batch is 32 rows of 5 s, not the
+    short requests padded to 32 rows."""
     import torch
 
     import tpuasr_torch.model.ds2 as ds2
@@ -2237,7 +2280,9 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None, path: str =
         # 5 s bucket and 32 rows), kernel vs plain loop on the card
         from scipy.io import wavfile
 
-        waves = [wavfile.read(io.BytesIO(b))[1] for b in bodies[:n_short]]
+        waves = [wavfile.read(io.BytesIO(b))[1] for b in
+                 ([wav_bytes(5.0, seed=100 + j) for j in range(32)] if full_batch
+                  else bodies[:n_short])]
         arr = np.zeros((32, svc.spec.bucket_samples(svc.spec.bucket_of(5.0))), np.int16)
         lens = np.zeros((32,), np.int32)
         for j, w in enumerate(waves):
@@ -2788,6 +2833,383 @@ def phase_augment_resident(smi: str, name: str, out, paths, device: str = "cuda"
             "profile_chunk": chunk}
 
 
+# ------------------------------------------------------------------ stream
+
+def phase_kernel_d1(smi: str, device: str = "cuda", shapes=TIMING_SHAPES) -> dict:
+    """K1f, K1b, K4f and K4b with one direction (a unidirectional model's
+    layers), B=32, H=800, bf16, at T'=251 and 826: each against its plain
+    loop with the D=2 tolerances (one launch a forward call, the whole
+    autograd function too at T'=251), then times beside cuDNN's
+    unidirectional nn.GRU / nn.LSTM and the bounds (half the D=2 work),
+    and the launch plans at D=1 (blocks, rows one plan holds)."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+    import tpuasr_torch.ops.lstm as lstm_mod
+    from tpuasr_torch.ops.rnn_plan import max_bwd_rows, max_fwd_rows, rnn_fwd_plan
+
+    cuda = torch.device(device)
+    kinds = {
+        "gru": (3, gru_mod.bigru_forward, gru_mod.bigru_reference, gru_mod.bigru_backward,
+                gru_mod.bigru_backward_reference, gru_mod.BiGRUFunction, "bigru_fwd"),
+        "lstm": (4, lstm_mod.bilstm_forward, lstm_mod.bilstm_reference,
+                 lstm_mod.bilstm_backward, lstm_mod.bilstm_backward_reference,
+                 lstm_mod.BiLSTMFunction, "bilstm_fwd"),
+    }
+    errs, timings, plans = {}, {}, {}
+    for kind, (g, fwd, plain, bwd, bwd_plain, fn, lib_name) in kinds.items():
+        n_sms, smem = gru_mod._card(lib_name, cuda)
+        plans[kind] = {"n_sms": n_sms, "blocks_fwd": rnn_fwd_plan(1, 32, 800, g, 2, n_sms,
+                                                                   smem).n_blocks,
+                       "max_fwd_rows": max_fwd_rows(1, 800, g, 2, n_sms, smem),
+                       "max_bwd_rows": max_bwd_rows(1, 800, g, 2, n_sms, smem)}
+        check(plans[kind]["max_bwd_rows"] >= 32, f"{kind} D=1 backward plan: {plans[kind]}")
+        names = (fwd.__name__, bwd.__name__)
+        timings.update({n: [] for n in names})
+        for i, (t, b, h) in enumerate(shapes):
+            args = gru_case(t, b, h, 1, torch.bfloat16, seed=70 + i, device=cuda, n_gates=g)
+            before = fwd.launches
+            out = fwd(*args)
+            torch.cuda.synchronize()
+            check(fwd.launches == before + 1, f"{names[0]} D=1 T={t}: one launch a call")
+            ys, cs = out if g == 4 else (out, None)
+            ys_p, cs_p = plain(*args) if g == 4 else (plain(*args), None)
+            row = {"ys": check_fwd(f"{names[0]} D=1 T={t}", ys, ys_p, "bfloat16")}
+            if g == 4:
+                row["cs"] = check_fwd(f"{names[0]} D=1 T={t} cs", cs, cs_p, "bfloat16")
+            gen = torch.Generator(device=cuda).manual_seed(i)
+            dy = (0.1 * torch.randn(ys.shape, generator=gen, device=cuda)).to(torch.bfloat16)
+            h_prev = gru_mod.shift_time(ys_p)
+            bwd_args = ((*args, h_prev, gru_mod.shift_time(cs_p), cs_p, dy) if g == 4
+                        else (*args, h_prev, dy))
+            row["dhg"] = check_bwd(f"{names[1]} D=1 T={t}", bwd(*bwd_args),
+                                   bwd_plain(*bwd_args), "bfloat16")
+            if i == 0:
+                row["function_rel_norm_err"] = function_vs_plain(fn.apply, *args, dy, "bfloat16")
+            errs.setdefault(names[0], row["ys"]["max_abs_err"])
+            errs.setdefault(names[1], row["dhg"]["max_abs_err"])
+            timings[names[0]].append(fwd_timing(fwd, plain, args, args[:3], t, b, h, 1,
+                                                n_gates=g))
+            timings[names[1]].append(bwd_timing(bwd, bwd_plain, bwd_args, args[:3], t, b, h, 1,
+                                                n_gates=g))
+            emit("kernel_d1", kind=kind, shape=[t, 1, b, h], dtype="bfloat16", **row,
+                 fwd_time=timings[names[0]][-1], bwd_time=timings[names[1]][-1],
+                 plan=plans[kind], nvidia_smi=smi)
+    return {"max_abs_err": errs, "timings": timings, "plans": plans}
+
+
+STREAM_CHUNK_FRAMES = 32
+STREAM_SECONDS = 20.0
+
+
+def wave_of(body: bytes) -> np.ndarray:
+    from scipy.io import wavfile
+
+    return wavfile.read(io.BytesIO(body))[1].astype(np.float32) / 32768.0
+
+
+def stream_vs_offline(model, fe, alphabet, smi: str, device: str = "cuda") -> dict:
+    """One 20 s stream through StreamingTranscriber on the card against
+    the card's offline model on the same wave (normalize off, the
+    configuration where streaming is exact), with serve_parity's bf16
+    tolerances; the offline forward's K1f launches are counted."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+    from tpuasr_torch.audio.frontend import log_spectrogram
+    from tpuasr_torch.stream import StreamingTranscriber
+
+    wave = wave_of(wav_bytes(STREAM_SECONDS, seed=7))
+    gru_mod.bigru_forward.launches = 0  # ---- the offline path starts here
+    with torch.inference_mode():
+        feats, flen = log_spectrogram(torch.from_numpy(wave[None]).to(device),
+                                      torch.tensor([len(wave)]).to(device), fe)
+        ref, out_len = model(feats, flen)
+    t1 = int(out_len[0])
+    offline_launches = gru_mod.bigru_forward.launches  # ---- and ends here
+    st = StreamingTranscriber(model, model.config, fe, alphabet,
+                              chunk_frames=STREAM_CHUNK_FRAMES, collect_logits=True,
+                              device=device)
+    block = STREAM_CHUNK_FRAMES * fe.hop
+    t0 = time.perf_counter()
+    for i in range(0, len(wave), block):
+        st.feed(wave[i:i + block])
+    st.flush()
+    wall_s = time.perf_counter() - t0
+    got = torch.from_numpy(st.logits()).to(device)
+    ref = ref[0, :t1].float()
+    check(tuple(got.shape) == tuple(ref.shape), f"streamed logits {tuple(got.shape)} "
+          f"vs offline {tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite streamed logits")
+    diff = (got - ref).abs()
+    stats = {"frames": t1, "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+             "argmax_agreement": (got.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+             "logits_abs_max": ref.abs().max().item(), "offline_k1f_launches": offline_launches,
+             "stream_wall_s": wall_s, "stream_ticks": st._k,
+             "x_realtime_one_stream": STREAM_SECONDS / wall_s, "text_chars": len(st.text)}
+    emit("stream_parity", nvidia_smi=smi, **stats)
+    check(stats["mean_abs_err"] <= 1e-2 and stats["max_abs_err"] <= 0.25
+          and stats["argmax_agreement"] >= 0.98, f"streamed vs offline logits: {stats}")
+    check(offline_launches > 0 or device != "cuda", "K1f never launched on the offline path")
+    return stats
+
+
+# the beam check's head gain: sharpens the near-uniform posteriors of
+# the one-epoch model, whose near-ties the host's f64 scores and K3's f32
+# scores may break apart (both engines then decode the same sharp logits)
+BEAM_HEAD_GAIN = 16.0
+
+
+def device_vs_host_beam(model, fe, alphabet, lm, smi: str, device: str = "cuda") -> dict:
+    """The device beam engine (K3 in its stateful mode) against the host
+    engine with a word LM, on one 20 s stream: the same text and offsets
+    from the same logits, and K3 launched (its count zeroed first).
+    ``model``'s head is sharpened by BEAM_HEAD_GAIN first (a copy)."""
+    import copy
+
+    import torch
+
+    import tpuasr_torch.ops.beam as beam_ops
+    from tpuasr_torch.stream import StreamingTranscriber
+
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        model.head_kernel.mul_(BEAM_HEAD_GAIN)
+
+    wave = wave_of(wav_bytes(STREAM_SECONDS, seed=8))
+    out = {}
+    for impl in ("host", "device"):
+        beam_ops.beam_scan.launches = 0  # ---- the stateful K3 path starts here
+        st = StreamingTranscriber(model, model.config, fe, alphabet,
+                                  chunk_frames=STREAM_CHUNK_FRAMES, decoder="beam", lm=lm,
+                                  beam_impl=impl, device=device)
+        t0 = time.perf_counter()
+        for i in range(0, len(wave), 5000):
+            st.feed(wave[i:i + 5000])
+        st.flush()
+        out[impl] = {"text": st.text, "offsets": st.offsets.tolist(),
+                     "wall_s": time.perf_counter() - t0,
+                     "k3_launches": beam_ops.beam_scan.launches}  # ---- and ends here
+    row = {"head_gain": BEAM_HEAD_GAIN, "text": out["device"]["text"],
+           "same_text": out["device"]["text"] == out["host"]["text"],
+           "same_offsets": out["device"]["offsets"] == out["host"]["offsets"],
+           "k3_launches": out["device"]["k3_launches"],
+           "host_wall_s": out["host"]["wall_s"], "device_wall_s": out["device"]["wall_s"]}
+    emit("stream_beam", nvidia_smi=smi, **row, host_text=out["host"]["text"])
+    check(row["same_text"] and row["same_offsets"], f"device vs host beam: {out}")
+    check((row["k3_launches"] > 0 or device != "cuda") and out["host"]["k3_launches"] == 0,
+          f"K3 launches (device, host): {row['k3_launches']}, {out['host']['k3_launches']}")
+    return row
+
+
+# where a tick reads back: the logits (greedy) or K3's packed outputs
+READ_BACK = {"greedy": "tick", "beam": "to_host"}
+
+
+def tick_times(model, fe, alphabet, lm, smi: str, ticks: int = 30,
+               device: str = "cuda") -> dict:
+    """ms per warm tick of MultiStreamTranscriber at 8 live streams, greedy
+    and with the device beam (word LM); the share of a tick spent in the
+    plain chunk recurrence (CUDA events around each ``_rnn_chunk``, and
+    the host's time in them); and where a warm tick first waits for the
+    card (under torch.cuda.set_sync_debug_mode "error" the tick stops at
+    its first synchronising call, which must be the one read-back; the
+    stopped tick changed nothing, and runs again)."""
+    import traceback
+
+    import torch
+
+    import tpuasr_torch.stream as stream_mod
+
+    real_chunk = stream_mod._rnn_chunk
+    rows = {}
+    for decoder in ("greedy", "beam"):
+        mst = stream_mod.MultiStreamTranscriber(
+            model, model.config, fe, alphabet, max_streams=8,
+            chunk_frames=STREAM_CHUNK_FRAMES, decoder=decoder, lm=lm,
+            beam_impl="device", device=device)
+        sids = [mst.open() for _ in range(8)]
+        hop = fe.hop
+        need = (ticks + 6) * STREAM_CHUNK_FRAMES * hop  # 3 warm, the timed, 2 more
+        for j, sid in enumerate(sids):
+            mst.feed(sid, wave_of(wav_bytes(need / 16000 + 0.1, seed=30 + j)))
+        for _ in range(3):
+            mst.tick()
+        cuda = device == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        sync()
+        spans, host = [], [0.0]
+
+        def event():
+            ev = torch.cuda.Event(enable_timing=True) if cuda else None
+            if cuda:
+                ev.record()
+            return ev
+
+        def timed_chunk(*a, **kw):
+            h0 = time.perf_counter()
+            s = event()
+            out = real_chunk(*a, **kw)
+            spans.append((s, event()))
+            host[0] += time.perf_counter() - h0
+            return out
+
+        with mock.patch.object(stream_mod, "_rnn_chunk", timed_chunk):
+            t0 = time.perf_counter()
+            start = event()
+            for _ in range(ticks):
+                check(mst.tick(), "a tick with 8 ready streams did nothing")
+            end = event()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        rnn_ms = sum(s.elapsed_time(e) for s, e in spans) / ticks if cuda else None
+        device_ms = start.elapsed_time(end) / ticks if cuda else None
+        first_sync = None
+        if cuda:  # the first host sync of a warm tick must be its read-back
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                mst.tick()
+            except RuntimeError as exc:
+                first_sync = [f.name for f in traceback.extract_tb(exc.__traceback__)
+                              if "tpuasr_torch" in f.filename][-1]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            # the aborted tick changed nothing: it runs again in full
+            check(mst.tick(), "the tick after the sync check did nothing")
+        rows[decoder] = {"ms_per_tick": wall_ms, "device_span_ms_per_tick": device_ms,
+                         "rnn_chunk_ms_per_tick": rnn_ms,
+                         "rnn_chunk_share": rnn_ms / device_ms if cuda else None,
+                         "rnn_chunk_host_ms_per_tick": host[0] * 1e3 / ticks,
+                         "first_sync_of_a_tick": first_sync,
+                         "audio_s_per_tick": 8 * STREAM_CHUNK_FRAMES * hop / 16000}
+        check(not cuda or first_sync == READ_BACK[decoder],
+              f"{decoder} tick: its first host sync is in {first_sync}, not the read-back")
+    emit("stream_ticks", streams=8, chunk_frames=STREAM_CHUNK_FRAMES, nvidia_smi=smi, **rows)
+    return rows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def load_tests(ckpt, lm_path: str, smi: str, streams: int = 8,
+               seconds: float = STREAM_SECONDS, device: str = "cuda") -> dict:
+    """``cli.serve --streaming --max-streams 8`` started as a process,
+    greedy and ``--decoder beam --stream-beam-impl device`` (both started
+    together), each driven by ``scripts/stream_load_test.py --streams 8
+    --seconds 20`` in a process of its own (HTTP only); every stream must
+    finish. Both servers are stopped whatever happens."""
+    import signal
+
+    work = ROOT / "build" / "chip_smoke"
+    modes = {"greedy": [], "beam_device": ["--decoder", "beam", "--stream-beam-impl", "device",
+                                            "--lm-path", lm_path]}
+    procs, ports, logs = {}, {}, {}
+    try:
+        for mode, extra in modes.items():
+            ports[mode] = free_port()
+            logs[mode] = open(work / f"serve_stream_{mode}.log", "w")
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-m", "tpuasr_torch.cli.serve", "--model-path", str(ckpt),
+                 "--host", "127.0.0.1", "--port", str(ports[mode]), "--streaming",
+                 "--max-streams", str(streams), "--device", device, *extra],
+                cwd=ROOT, stdout=logs[mode], stderr=subprocess.STDOUT)
+        for mode in modes:  # both up before either is driven
+            deadline = time.perf_counter() + 300
+            while True:
+                check(procs[mode].poll() is None, f"{mode} server exited")
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{ports[mode]}/healthz", timeout=5):
+                        break
+                except OSError:
+                    check(time.perf_counter() < deadline, f"{mode} server never came up")
+                    time.sleep(0.5)
+        rows = {}
+        for mode in modes:
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, str(ROOT / "scripts" / "stream_load_test.py"), "--port",
+                 str(ports[mode]), "--streams", str(streams), "--seconds", str(seconds)],
+                capture_output=True, text=True, timeout=600)
+            check(res.returncode == 0 and procs[mode].poll() is None,
+                  f"{mode} load test rc {res.returncode}: {res.stderr[-2000:]}")
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            check(line["audio_s_total"] == streams * seconds,
+                  f"{mode}: not every stream finished: {line}")
+            rows[mode] = {**line, "command_s": time.perf_counter() - t0}
+        emit("stream_load", nvidia_smi=smi, **rows)
+        return rows
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+        for proc in procs.values():
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+
+
+def stream_inputs(n_train: int = 64, n_val: int = 32):
+    """Phase 4's synthetic corpus and phase 6's word trigram, made anew:
+    the inputs of ``phase_stream`` when it runs alone (--stream-only)."""
+    import shutil
+
+    from tpuasr_torch.cli import synth_corpus, train_lm
+
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work / "corpus", ignore_errors=True)
+    paths = synth_corpus.generate(str(work / "corpus"), n_train + n_val, 5.0,
+                                  n_val / (n_train + n_val), seed=0)
+    lm_word = str(work / "lm_word.arpa")
+    rc, lines = run_cli(train_lm.main, ["--manifest", paths["train"], "--order", "3",
+                                        "--out", lm_word])
+    check(rc == 0, f"cli.train_lm: {lines}")
+    return paths, lm_word
+
+
+def phase_stream(smi: str, name: str, paths, lm_path: str) -> dict:
+    """Slice 10's paths at the flagship's width with one direction (5
+    GRU-800 layers, bf16, lookahead 20): training, offline serving, live
+    streaming against the offline model, the device beam against the
+    host beam, ticks at 8 streams, and the HTTP load test."""
+    import dataclasses
+
+    import torch
+
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.decode.lm import load_lm
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+
+    res, out, _ = phase_train(smi, name, path="uni", epochs=1, paths=paths)
+    train_step_parity(out, paths, path="uni")
+    ckpt = out / "best.ckpt"
+    serve_launches = phase_serve(smi, name, path="uni", ckpt=ckpt, long_request=False,
+                                 warmup=(5.0,), full_batch=True)
+    pkg = load_checkpoint(str(ckpt))
+    cfg = pkg.model_config
+    check(not cfg.bidirectional and cfg.lookahead_context == 20 and cfg.hidden_size == 800,
+          f"the stream phase's model: {cfg}")
+    model = model_from_variables(pkg.variables, cfg, torch.device("cuda"))
+    fe = dataclasses.replace(pkg.frontend_config, normalize=False)
+    lm = load_lm(lm_path)
+    parity = stream_vs_offline(model, fe, pkg.alphabet, smi)
+    beam = device_vs_host_beam(model, pkg.frontend_config, pkg.alphabet, lm, smi)
+    ticks = tick_times(model, pkg.frontend_config, pkg.alphabet, lm, smi)
+    load = load_tests(ckpt, lm_path, smi)
+    return {"train": res["launches"], "serve": serve_launches,
+            "offline": parity["offline_k1f_launches"], "beam": beam["k3_launches"],
+            "ticks": ticks, "load": load}
+
+
 def build_all(names) -> None:
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2830,6 +3252,15 @@ def main() -> int:
         time_beam_path(Path(sys.argv[2]), sys.argv[3], nvidia_smi_line())
         return 0
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--stream-only"]:  # phase 10 alone, on its own inputs
+        smi = nvidia_smi_line()
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd"])
+        t0 = time.perf_counter()
+        phase_kernel_d1(smi)
+        phase_stream(smi, torch.cuda.get_device_name(0), *stream_inputs())
+        emit("wall", seconds=time.perf_counter() - t0)
+        return 0
 
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -2866,6 +3297,10 @@ def main() -> int:
             smi, name, path=path, ckpt=p_out / "best.ckpt", durations=(1.0, 2.2, 3.4, 5.0),
             long_request=False, warmup=(5.0,)))
     aug = phase_augment_resident(smi, name, out, paths)
+    # slice 10: K1 and K4 with one direction, then the unidirectional
+    # flagship trained, served offline and streamed
+    d1 = phase_kernel_d1(smi)
+    stream = phase_stream(smi, name, paths, lm_word)
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
@@ -2879,17 +3314,24 @@ def main() -> int:
         the serving and evaluation paths given)."""
         return {"train": train_launches[wrapper], "train_lstm": lstm_train[wrapper],
                 "train_gru2": gru2_train[wrapper], "train_resident": aug["train"][wrapper],
-                **serve}
+                "train_uni": stream["train"][wrapper], **serve}
+
+    def d1_of(wrapper):
+        """A recurrent kernel's D=1 checks: max-abs error vs plain and
+        times at T'=251 and 826 (not main-path launches)."""
+        return {"max_abs_err_d1": d1["max_abs_err"][wrapper], "timings_d1": d1["timings"][wrapper]}
 
     print(json.dumps({"kernels": [
         kernel_entry("bigru_fwd", "tpuasr/ops/gru.py:71 _fwd_kernel", k1f_row["max_abs_err"],
                      k1f_timings[0], by_path("bigru_forward", serve=serve_launches,
                                              test_resident_greedy=aug["greedy"]["bigru_forward"],
-                                             test_resident_beam=aug["beam"]["bigru_forward"]),
-                     timings=k1f_timings, card=smi),
+                                             test_resident_beam=aug["beam"]["bigru_forward"],
+                                             serve_uni=stream["serve"],
+                                             stream_offline_uni=stream["offline"]),
+                     timings=k1f_timings, **d1_of("bigru_forward"), card=smi),
         kernel_entry("bigru_bwd", "tpuasr/ops/gru.py:100 _bwd_kernel", k1b_row["max_abs_err"],
                      k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
-                     card=smi),
+                     **d1_of("bigru_backward"), card=smi),
         kernel_entry("ctc_alpha", "tpuasr/ops/ctc.py:57 _alpha_kernel",
                      ctc_row["alphas_max_abs_err"], ctc_timing["ctc_alpha"][0],
                      by_path("ctc_alpha"), loss_rel_err=ctc_row["loss_rel_err"],
@@ -2900,15 +3342,16 @@ def main() -> int:
                      timings=ctc_timing["ctc_beta"], card=smi),
         kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
                      next(r for r in beam_timings if r["mode"] == "word"),
-                     {**beam_launches, "test_resident_beam": aug["beam"]["beam_scan"]},
+                     {**beam_launches, "test_resident_beam": aug["beam"]["beam_scan"],
+                      "stream_device_beam": stream["beam"]},
                      timings=beam_timings, limits=limit_rows, card=smi),
         kernel_entry("bilstm_fwd", "tpuasr/ops/lstm.py:62 _fwd_kernel", k4_err["bilstm_fwd"],
                      k4_timings["bilstm_fwd"][0],
                      by_path("bilstm_forward", serve_lstm=lstm_serve),
-                     timings=k4_timings["bilstm_fwd"], card=smi),
+                     timings=k4_timings["bilstm_fwd"], **d1_of("bilstm_forward"), card=smi),
         kernel_entry("bilstm_bwd", "tpuasr/ops/lstm.py:94 _bwd_kernel", k4_err["bilstm_bwd"],
                      k4_timings["bilstm_bwd"][0], by_path("bilstm_backward"),
-                     timings=k4_timings["bilstm_bwd"], card=smi),
+                     timings=k4_timings["bilstm_bwd"], **d1_of("bilstm_backward"), card=smi),
         kernel_entry("bigru2_fwd", "tpuasr/ops/gru2.py:36 _fwd_kernel", k5_err["bigru2_fwd"],
                      k5_timings["bigru2_fwd"][0],
                      by_path("bigru2_forward", serve_gru2=gru2_serve),

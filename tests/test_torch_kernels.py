@@ -1045,3 +1045,61 @@ def test_resident_chunk_runs_without_a_sync_and_equals_the_per_batch_steps(cuda)
                 losses.append(float(m["loss"]))
             steps.append(losses)
     assert steps[0] == steps[1] and all(np.isfinite(steps[0]))
+
+
+def _uni_variables(seed=3):
+    from tpuasr_torch.compat.weights import init_variables
+    from tpuasr_torch.model.ds2 import ModelConfig
+
+    cfg = ModelConfig(n_classes=4, hidden_size=32, hidden_layers=2, bidirectional=False,
+                      lookahead_context=4, compute_dtype="float32")
+    return cfg, init_variables(cfg, seed=seed)
+
+
+@pytest.mark.cuda
+def test_streaming_on_the_card_matches_the_cpu(cuda):  # noqa: F811
+    """The streaming step on the card (f32 products, TF32 off) gives the
+    CPU's logits within the f32 kernel tolerance, and the same text."""
+    from tpuasr_torch.audio.frontend import FrontendConfig
+    from tpuasr_torch.stream import StreamingTranscriber
+
+    cfg, variables = _uni_variables()
+    wave = (np.random.RandomState(7).randn(21000) * 0.1).astype(np.float32)
+    runs = []
+    for device in ("cuda", "cpu"):
+        st = StreamingTranscriber(variables, cfg, FrontendConfig(normalize=False),
+                                  Alphabet(labels="_ AB"), chunk_frames=16,
+                                  collect_logits=True, device=device)
+        for i in range(0, len(wave), 777):
+            st.feed(wave[i:i + 777])
+        st.flush()
+        runs.append((st.logits(), st.text))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-4, atol=1e-4)
+    assert runs[0][1] == runs[1][1]
+
+
+@pytest.mark.cuda
+def test_device_beam_streams_on_the_card_match_the_cpu(cuda):  # noqa: F811
+    """DeviceBeamStreams (K3 stateful, two slots, ragged windows, a word
+    LM) commits the same ids and frames on the card as K3's plain version
+    on the CPU, and K3 launches once a tick."""
+    from tpuasr_torch.decode.beam import DeviceBeamDecoder
+    from tpuasr_torch.decode.device_stream import DeviceBeamStreams
+
+    alphabet = Alphabet(labels="_ AB")
+    dec = DeviceBeamDecoder(alphabet, beam_width=6, alpha=0.5, beta=0.3,
+                            word_lm=train_ngram(["AB A B", "B AB", "A AB B"], order=2))
+    rng = np.random.RandomState(5)
+    ticks = [(rng.randn(2, 8, 4).astype(np.float32) * 3, rng.randint(0, 3, 2),
+              rng.randint(3, 6, 2)) for _ in range(6)]
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        eng = DeviceBeamStreams(dec, 2, alphabet.size, 8, device=device)
+        eng.reset_slot(1)
+        before = beam_scan.launches
+        for logits, lo, lens in ticks:
+            eng.advance(torch.from_numpy(logits).to(device), lo, lens)
+        out.append(([eng.committed(i) for i in range(2)], [eng.finalize(i)[:2] for i in range(2)],
+                     beam_scan.launches - before))
+    assert out[0][:2] == out[1][:2]
+    assert out[0][2] == len(ticks) and out[1][2] == 0

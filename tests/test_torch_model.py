@@ -71,17 +71,6 @@ def test_logits_match_jax_pallas_bf16():
     assert diff.max() <= 5e-2 and diff.mean() <= 2e-3, (diff.max(), diff.mean())
 
 
-@pytest.mark.parametrize("cfg_kw,item", [
-    ({"rnn_type": "rnn"}, "vanilla"),
-    ({"bidirectional": False}, "streaming"),
-])
-def test_unported_configs_raise(cfg_kw, item):
-    from tpuasr_torch.model.ds2 import DeepSpeech2
-
-    with pytest.raises(NotImplementedError, match=item):
-        DeepSpeech2(ModelConfig(hidden_size=8, hidden_layers=1, **cfg_kw))
-
-
 def test_config_dict_round_trips_with_jax():
     cfg = ModelConfig(hidden_size=24, compute_dtype="float32", rnn_impl="pallas")
     d = cfg.to_dict()

@@ -154,7 +154,10 @@ def test_http_round_trip(service):
             urllib.request.urlopen(urllib.request.Request(
                 f"http://127.0.0.1:{port}/stream/open", data=b"",
                 method="POST"), timeout=30)
-        assert e.value.code == 404
+        # no stream service behind this server: tpuasr's 400 "streaming
+        # disabled" (tpuasr/serve.py:495-499)
+        assert e.value.code == 400
+        assert "streaming disabled" in json.loads(e.value.read())["error"]
     finally:
         server.shutdown()
         server.server_close()
@@ -206,8 +209,6 @@ def test_long_audio_policies(ckpt, long_audio):
 def test_serve_cli_rejects_unported_modes(ckpt):
     from tpuasr_torch.cli.serve import main
 
-    with pytest.raises(NotImplementedError, match="streaming"):
-        main(["--model-path", ckpt, "--streaming", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         main(["--model-path", ckpt, "--decoder", "beam-native", "--device", "cpu"])
 

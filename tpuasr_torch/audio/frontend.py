@@ -89,16 +89,18 @@ def _window_np(kind: str, n: int) -> np.ndarray:
     return w.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_mat_combined(n_fft: int) -> np.ndarray:
-    """cos|-sin real-DFT basis side by side, (n_fft, 2 * (n_fft//2+1))."""
+def _dft_mats(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real-DFT basis: cos and -sin matrices of shape (n_fft, n_fft//2+1)."""
     n = np.arange(n_fft)[:, None].astype(np.float64)
     k = np.arange(n_fft // 2 + 1)[None, :].astype(np.float64)
     ang = 2.0 * np.pi * n * k / n_fft
-    return np.concatenate(
-        [np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)],
-        axis=1,
-    )
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_mat_combined(n_fft: int) -> np.ndarray:
+    """cos|-sin real-DFT basis side by side, (n_fft, 2 * (n_fft//2+1))."""
+    return np.concatenate(_dft_mats(n_fft), axis=1)
 
 
 def _reflect(pos: torch.Tensor, lengths: torch.Tensor, l: int) -> torch.Tensor:
@@ -201,3 +203,47 @@ def log_spectrogram(waves: torch.Tensor, lengths: torch.Tensor,
         feats = (feats - mean[:, None, None]) / std[:, None, None]
 
     return feats * mask, feat_lengths
+
+
+def corpus_feature_stats(manifest_path: str, cfg: FrontendConfig,
+                         max_utts: int = 256,
+                         seed: int = 0) -> tuple[float, float]:
+    """Scalar (mean, var) of the un-normalized log1p spectrogram over a
+    sample of a manifest's utterances (a copy of
+    ``tpuasr/audio/frontend.py:264``): the corpus statistics that prime
+    the streaming step's causal normalization (``stream._init_carry``
+    ``prime_stats``). Pure NumPy on the host, the same sampling
+    (``RandomState(seed).choice``), padding and sums."""
+    import csv
+
+    from tpuasr_torch.audio.io import load_audio
+
+    with open(manifest_path) as f:
+        rows = [r for r in csv.reader(f) if r]
+    if len(rows) > max_utts:
+        rng = np.random.RandomState(seed)
+        rows = [rows[i] for i in
+                rng.choice(len(rows), max_utts, replace=False)]
+    win = _window_np(cfg.window, cfg.n_fft)
+    cos_m, sin_m = _dft_mats(cfg.n_fft)
+    cnt = 0
+    s1 = 0.0
+    s2 = 0.0
+    for r in rows:
+        wave = np.asarray(load_audio(r[0], cfg.sample_rate), np.float32)
+        t_f = 1 + len(wave) // cfg.hop
+        half = cfg.n_fft // 2
+        padded = np.concatenate([wave[1:half + 1][::-1], wave,
+                                 wave[-2:-half - 2:-1],
+                                 np.zeros(cfg.n_fft, np.float32)])
+        frames = np.stack([padded[i * cfg.hop: i * cfg.hop + cfg.n_fft]
+                           for i in range(t_f)]) * win
+        re = frames @ cos_m
+        im = frames @ sin_m
+        feats = np.log1p(np.sqrt(re * re + im * im + 1e-30))
+        cnt += feats.size
+        s1 += float(feats.sum())
+        s2 += float((feats * feats).sum())
+    mean = s1 / max(cnt, 1)
+    var = max(s2 / max(cnt, 1) - mean * mean, 1e-10)
+    return mean, var

@@ -13,7 +13,10 @@ chunk of steps per bucket) and ``--profile-dir`` (a trace of steps
 (data parallelism and tensor parallelism) parse and then raise
 NotImplementedError naming their ROADMAP.md item. ``--rnn-type``
 and ``--rnn-impl`` pick the recurrent kernel (``gru`` runs K1 under
-``scan``/``pallas`` and K5 under ``pallas2``; ``lstm`` runs K4);
+``scan``/``pallas`` and K5 under ``pallas2``; ``lstm`` runs K4; ``rnn``
+runs the vanilla RNN's plain loop); ``--no-bidirectional`` runs K1 or K4
+with one direction, then a Lookahead layer of ``--lookahead-context``
+frames;
 ``--ctc-impl`` is recorded in the checkpoint, and the port runs one CTC
 function whatever it names.
 """

@@ -5,9 +5,13 @@ as nested dicts of numpy arrays with the flax module names
 (``conv{i}/Conv_0/kernel``, ``rnn{i}/bi/recurrent_kernel``,
 ``head_bn``, ``head/kernel``, ...). ``from_jax_variables`` turns such a
 tree into a state dict of ``tpuasr_torch.model.ds2.DeepSpeech2``, so a
-checkpoint trained by the JAX package serves and trains unchanged (GRU
-and LSTM alike: both keep their recurrent weights under the same names,
-(2, H_in, G*H) and (2, H, G*H) with G = 3 or 4, whatever the rnn_impl);
+checkpoint trained by the JAX package serves and trains unchanged (GRU,
+LSTM and vanilla RNN alike: a bidirectional layer keeps its recurrent
+weights under ``rnn{i}/bi``, (2, H_in, G*H) and (2, H, G*H) with G = 3,
+4 or 1, whatever the rnn_impl; a unidirectional one under
+``rnn{i}/fwd``, ``input_proj/{kernel,bias}`` (H_in, G*H) and
+``recurrent_{kernel,bias}`` (H, G*H), followed by
+``lookahead/Conv_0/kernel`` (ctx, 1, H) when ``lookahead_context`` > 0);
 ``to_jax_variables`` is its inverse. ``init_variables`` builds a seeded
 tree of the same shape without JAX (random statistics, for serving
 tests); ``init_train_variables`` draws a fresh model from flax's init
@@ -30,6 +34,14 @@ from tpuasr_torch.model.ds2 import (
 )
 
 _BI_KEYS = ("input_kernel", "input_bias", "recurrent_kernel", "recurrent_bias")
+_FWD_KEYS = (("input_proj.kernel", ("input_proj", "kernel")),
+             ("input_proj.bias", ("input_proj", "bias")),
+             ("recurrent_kernel", ("recurrent_kernel",)),
+             ("recurrent_bias", ("recurrent_bias",)))
+
+
+def has_lookahead(cfg: ModelConfig) -> bool:
+    return not cfg.bidirectional and cfg.lookahead_context > 0
 
 
 def _t(a) -> torch.Tensor:
@@ -55,8 +67,15 @@ def variable_paths(cfg: ModelConfig):
     for i in range(cfg.hidden_layers):
         if i > 0:
             bn(f"rnns.{i}.bn.", (f"rnn{i}", "MaskedBatchNorm_0"))
-        for k in _BI_KEYS:
-            out.append((f"rnns.{i}.bi.{k}", ("params", f"rnn{i}", "bi", k), False))
+        if cfg.bidirectional:
+            for k in _BI_KEYS:
+                out.append((f"rnns.{i}.bi.{k}", ("params", f"rnn{i}", "bi", k), False))
+        else:
+            for name, path in _FWD_KEYS:
+                out.append((f"rnns.{i}.fwd.{name}", ("params", f"rnn{i}", "fwd", *path),
+                            False))
+    if has_lookahead(cfg):
+        out.append(("lookahead.kernel", ("params", "lookahead", "Conv_0", "kernel"), False))
     bn("head_bn.", ("head_bn",))
     out.append(("head_kernel", ("params", "head", "kernel"), False))
     return out
@@ -182,14 +201,26 @@ def init_variables(cfg: ModelConfig, seed: int = 0) -> dict:
             bp, bs = bn(h_in)
             layer["MaskedBatchNorm_0"] = bp
             stats[f"rnn{i}"] = {"MaskedBatchNorm_0": bs}
-        layer["bi"] = {
-            "input_kernel": normal((2, h_in, g), h_in),
-            "input_bias": (0.1 * rng.standard_normal((2, g))).astype(np.float32),
-            "recurrent_kernel": normal((2, cfg.hidden_size, g), cfg.hidden_size),
-            "recurrent_bias": (0.1 * rng.standard_normal((2, g))).astype(np.float32),
-        }
+        if cfg.bidirectional:
+            layer["bi"] = {
+                "input_kernel": normal((2, h_in, g), h_in),
+                "input_bias": (0.1 * rng.standard_normal((2, g))).astype(np.float32),
+                "recurrent_kernel": normal((2, cfg.hidden_size, g), cfg.hidden_size),
+                "recurrent_bias": (0.1 * rng.standard_normal((2, g))).astype(np.float32),
+            }
+        else:
+            layer["fwd"] = {
+                "input_proj": {
+                    "kernel": normal((h_in, g), h_in),
+                    "bias": (0.1 * rng.standard_normal(g)).astype(np.float32)},
+                "recurrent_kernel": normal((cfg.hidden_size, g), cfg.hidden_size),
+                "recurrent_bias": (0.1 * rng.standard_normal(g)).astype(np.float32),
+            }
         params[f"rnn{i}"] = layer
         h_in = cfg.hidden_size
+    if has_lookahead(cfg):
+        params["lookahead"] = {"Conv_0": {"kernel": normal(
+            (cfg.lookahead_context, 1, cfg.hidden_size), cfg.lookahead_context)}}
     bp, bs = bn(cfg.hidden_size)
     params["head_bn"], stats["head_bn"] = bp, bs
     params["head"] = {"kernel": normal((cfg.hidden_size, cfg.n_classes),
@@ -232,9 +263,10 @@ def _orthogonal(rng, shape):
 def init_train_variables(cfg: ModelConfig, seed: int = 0) -> dict:
     """A fresh model's flax-shaped ``{"params", "batch_stats"}`` tree,
     drawn from the distributions ``tpuasr``'s flax modules initialise
-    with: orthogonal recurrent kernels, LeCun-normal input, conv and head
-    kernels, zero biases, BatchNorm scale 1 and bias 0, statistics 0 and
-    1. Seeded numpy, so the values are not flax's own."""
+    with: orthogonal recurrent kernels (LeCun-normal for the vanilla
+    RNN), LeCun-normal input, conv, Lookahead and head kernels, zero
+    biases, BatchNorm scale 1 and bias 0, statistics 0 and 1. Seeded
+    numpy, so the values are not flax's own."""
     rng = np.random.RandomState(seed)
     g = GATES[cfg.rnn_type] * cfg.hidden_size
     params: dict = {}
@@ -258,14 +290,28 @@ def init_train_variables(cfg: ModelConfig, seed: int = 0) -> dict:
         if i > 0:
             layer["MaskedBatchNorm_0"], bs = bn(h_in)
             stats[f"rnn{i}"] = {"MaskedBatchNorm_0": bs}
-        layer["bi"] = {
-            "input_kernel": _lecun_normal(rng, (2, h_in, g)),
-            "input_bias": np.zeros((2, g), np.float32),
-            "recurrent_kernel": _orthogonal(rng, (2, cfg.hidden_size, g)),
-            "recurrent_bias": np.zeros((2, g), np.float32),
-        }
+        # the vanilla RNN's recurrent kernel is LeCun-normal, the others'
+        # orthogonal (tpuasr/model/ds2.py:267, 409)
+        rec = _lecun_normal if cfg.rnn_type == "rnn" else _orthogonal
+        if cfg.bidirectional:
+            layer["bi"] = {
+                "input_kernel": _lecun_normal(rng, (2, h_in, g)),
+                "input_bias": np.zeros((2, g), np.float32),
+                "recurrent_kernel": rec(rng, (2, cfg.hidden_size, g)),
+                "recurrent_bias": np.zeros((2, g), np.float32),
+            }
+        else:
+            layer["fwd"] = {
+                "input_proj": {"kernel": _lecun_normal(rng, (h_in, g)),
+                               "bias": np.zeros(g, np.float32)},
+                "recurrent_kernel": rec(rng, (cfg.hidden_size, g)),
+                "recurrent_bias": np.zeros(g, np.float32),
+            }
         params[f"rnn{i}"] = layer
         h_in = cfg.hidden_size
+    if has_lookahead(cfg):
+        params["lookahead"] = {"Conv_0": {"kernel": _lecun_normal(
+            rng, (cfg.lookahead_context, 1, cfg.hidden_size))}}
     params["head_bn"], stats["head_bn"] = bn(cfg.hidden_size)
     params["head"] = {"kernel": _lecun_normal(rng, (cfg.hidden_size, cfg.n_classes))}
     return {"params": params, "batch_stats": stats}

@@ -1,8 +1,10 @@
 """Deep Speech 2 acoustic model (port of ``tpuasr/model/ds2.py``).
 
-Two masked conv + BatchNorm + HardTanh blocks, bidirectional recurrent
-layers (GRU or LSTM) with the directions summed and a BatchNorm before
-every layer but the first, then a BatchNorm + Linear head.
+Two masked conv + BatchNorm + HardTanh blocks, recurrent layers (GRU,
+LSTM or the vanilla tanh RNN; bidirectional with the directions summed,
+or unidirectional) with a BatchNorm before every layer but the first,
+for a unidirectional model a Lookahead layer (a depthwise conv over the
+next ``lookahead_context`` frames), then a BatchNorm + Linear head.
 ``forward(..., train)`` selects BatchNorm's mode: batch statistics over
 valid positions (and an update of the running statistics) in training,
 running statistics in evaluation. Numerics follow the JAX package's
@@ -19,22 +21,28 @@ Which kernel runs the time loop:
   gru + pallas2          K5, ``gru2.bigru2_forward`` / ``BiGRU2Function``
                          (gate-major projections and weights)
   lstm + any impl        K4, ``lstm.bilstm_forward`` / ``BiLSTMFunction``
-  rnn (vanilla)          NotImplementedError (ROADMAP.md)
-  unidirectional         NotImplementedError (ROADMAP.md)
+  gru, unidirectional    K1 with one direction (D=1), any impl
+  lstm, unidirectional   K4 with one direction (D=1)
+  rnn (vanilla)          no kernel: a plain time loop in the compute
+                         dtype (the JAX package runs ``lax.scan``
+                         under every impl; no Pallas kernel exists)
   =====================  ==========================================
 
 ``lstm`` runs K4 under every impl and ``gru`` + ``scan`` runs K1: the
 port follows the ``pallas`` numerics for every impl (the JAX package
-runs ``scan``, and ``lstm`` + ``pallas2``, through ``lax.scan``).
+runs ``scan``, and ``lstm`` + ``pallas2``, through ``lax.scan``). A
+unidirectional GRU runs K1 at D=1 under ``pallas2`` too: JAX's
+``RecurrentCore`` knows only ``pallas``, and K5 is bidirectional only.
 
 Layout notes. Activations keep the JAX package's (B, T, F, C) order at
 module boundaries: the convs run in PyTorch's (B, C, T, F) and are
 permuted back before the feature-major ``f * C + c`` flatten, so
 weights carry over unchanged. Parameters keep the flax names and
 layouts (``compat.weights`` maps a flax tree onto them), except the
-conv kernels, which are stored as PyTorch's (out, in, kT, kF); the
-pallas2 path relays the (2, H, 3H) recurrent kernel out gate-major at
-each call, so its gradient flows back to the same parameter.
+conv kernels, which are stored as PyTorch's (out, in, kT, kF) (the
+Lookahead's keeps flax's (ctx, 1, H)); the pallas2 path relays the
+(2, H, 3H) recurrent kernel out gate-major at each call, so its
+gradient flows back to the same parameter.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ CONV_SPECS = (
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-GATES = {"gru": 3, "lstm": 4}  # gate blocks of H per recurrent weight
+GATES = {"gru": 3, "lstm": 4, "rnn": 1}  # gate blocks of H per recurrent weight
 RNN_IMPLS = ("scan", "pallas", "pallas2")
 BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
 
@@ -129,17 +137,9 @@ def _time_mask(lengths: torch.Tensor, t_max: int) -> torch.Tensor:
     return torch.arange(t_max, device=lengths.device)[None, :] < lengths[:, None]
 
 
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.rnn_type == "rnn":
-        raise NotImplementedError(
-            "rnn_type='rnn' (the vanilla RNN) is not ported yet (ROADMAP.md: "
-            "vanilla RNN, unidirectional, Lookahead and streaming)")
+def _check_config(cfg: ModelConfig) -> None:
     if cfg.rnn_type not in GATES:
         raise ValueError(f"unknown rnn_type {cfg.rnn_type!r}")
-    if not cfg.bidirectional:
-        raise NotImplementedError(
-            "unidirectional models are not ported yet "
-            "(ROADMAP.md: unidirectional, Lookahead and streaming)")
     if cfg.rnn_impl not in RNN_IMPLS:
         raise ValueError(f"unknown rnn_impl {cfg.rnn_impl!r}")
     if cfg.bn_mask_mode not in ("masked", "reference"):
@@ -212,6 +212,42 @@ class MaskedConvBlock(nn.Module):
         return x * mask[:, :, None, None].to(x.dtype), out_lengths
 
 
+def tanh_rnn(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+    """The vanilla RNN's time loop, ``h = m * tanh(xg + h @ w_h + b_h) +
+    (1 - m) * h`` (``tpuasr/model/ds2.py:318-330, 523``), in xg's dtype
+    with plain ops, so autograd runs through it. xg (T, D, B, H), w_h
+    (D, H, H) and b_h (D, H) in the compute dtype, mask (T, D, B) ->
+    ys (T, D, B, H). No Pallas kernel exists for it in the JAX package
+    (``lax.scan`` under every impl), so the port has none either."""
+    dt = xg.dtype
+    h = xg.new_zeros(xg.shape[1:3] + (w_h.shape[1],))
+    ys = []
+    for t in range(xg.shape[0]):
+        h_new = torch.tanh(xg[t] + torch.bmm(h, w_h) + b_h[:, None, :])
+        m = mask[t].to(dt)[:, :, None]
+        h = m * h_new + (1 - m) * h
+        ys.append(h)
+    return torch.stack(ys)
+
+
+def _loop(rnn_type: str, xg, w_h, b_h, mask):
+    """One fused time loop over D directions: K1 (GRU) or K4 (LSTM)
+    through their autograd functions when grad is enabled, else the
+    forward wrappers; the vanilla RNN's plain loop. xg (T, D, B, G*H)
+    and w_h (D, H, G*H) in the compute dtype, b_h (D, G*H) (used in f32
+    by the kernels, in the compute dtype by the vanilla loop), mask
+    (T, D, B) f32 -> ys (T, D, B, H)."""
+    grad = torch.is_grad_enabled()
+    if rnn_type == "rnn":
+        return tanh_rnn(xg, w_h, b_h.to(xg.dtype), mask)
+    b_h = b_h.to(torch.float32).contiguous()
+    if rnn_type == "lstm":  # K4
+        return BiLSTMFunction.apply(xg, w_h, b_h, mask) if grad else \
+            bilstm_forward(xg, w_h, b_h, mask)[0]
+    return (BiGRUFunction.apply if grad else bigru_forward)(xg, w_h, b_h, mask)  # K1
+
+
 class BiRecurrentCore(nn.Module):
     """Both directions in one fused time loop (the kernel of the module
     docstring's table: the wrapper, or its autograd function when grad
@@ -232,7 +268,6 @@ class BiRecurrentCore(nn.Module):
 
     def forward(self, x, x_flip, mask_fwd, mask_bwd):
         dt, h = self.dtype, self.hidden
-        grad = torch.is_grad_enabled()
         xs = torch.stack([x, x_flip], dim=0).to(dt)  # (2, B, T, H_in)
         mask = torch.stack([mask_fwd, mask_bwd], dim=0)  # (2, B, T)
         mask_t = mask.permute(2, 0, 1).to(torch.float32).contiguous()
@@ -241,38 +276,80 @@ class BiRecurrentCore(nn.Module):
             xg = (torch.einsum("dbti,digh->tdgbh", xs, w_x)
                   + self.input_bias.to(dt).reshape(2, 3, h)[None, :, :, None, :])
             w_h = self.recurrent_kernel.reshape(2, h, 3, h).permute(0, 2, 1, 3)
-            ys = (BiGRU2Function.apply if grad else bigru2_forward)(
+            ys = (BiGRU2Function.apply if torch.is_grad_enabled() else bigru2_forward)(
                 xg.contiguous(), w_h.to(dt).contiguous(),
                 self.recurrent_bias.reshape(2, 3, h).to(torch.float32).contiguous(),
                 mask_t)  # (T, 2, B, H)
         else:
             xg = (torch.einsum("dbti,dig->tdbg", xs, self.input_kernel.to(dt))
                   + self.input_bias.to(dt)[None, :, None, :])  # (T, 2, B, G*H)
-            args = (xg.contiguous(), self.recurrent_kernel.to(dt).contiguous(),
-                    self.recurrent_bias.to(torch.float32).contiguous(), mask_t)
-            if self.rnn_type == "lstm":  # K4
-                ys = BiLSTMFunction.apply(*args) if grad else bilstm_forward(*args)[0]
-            else:  # K1
-                ys = (BiGRUFunction.apply if grad else bigru_forward)(*args)
+            ys = _loop(self.rnn_type, xg.contiguous(),
+                       self.recurrent_kernel.to(dt).contiguous(), self.recurrent_bias, mask_t)
         ys = ys.permute(1, 2, 0, 3)  # (2, B, T, H)
         return ys[0], ys[1]
 
 
+class Dense(nn.Module):
+    """flax ``nn.Dense``'s parameters, ``kernel`` (in, out) and ``bias``
+    (out,), applied in the compute dtype."""
+
+    def __init__(self, n_in: int, n_out: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(n_in, n_out))
+        self.bias = nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
+
+
+class RecurrentCore(nn.Module):
+    """One direction (``tpuasr/model/ds2.py:238 RecurrentCore``): the
+    input projection as one matmul, then the time loop with a singleton
+    direction axis (xg (T, 1, B, G*H), w_h (1, H, G*H), mask (T, 1, B)),
+    as the JAX package calls its fused kernels (``:281-295``): K1 for a
+    GRU, K4 for an LSTM, the plain loop for the vanilla RNN."""
+
+    def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype,
+                 rnn_type: str = "gru"):
+        super().__init__()
+        g = GATES[rnn_type] * hidden
+        self.dtype = compute_dtype
+        self.rnn_type = rnn_type
+        self.input_proj = Dense(h_in, g)
+        self.recurrent_kernel = nn.Parameter(torch.zeros(hidden, g))
+        self.recurrent_bias = nn.Parameter(torch.zeros(g))
+
+    def forward(self, x, mask):
+        dt = self.dtype
+        xg = self.input_proj(x, dt)  # (B, T, G*H)
+        ys = _loop(self.rnn_type, xg.transpose(0, 1)[:, None].contiguous(),
+                   self.recurrent_kernel.to(dt)[None].contiguous(), self.recurrent_bias[None],
+                   mask.t().to(torch.float32)[:, None].contiguous())  # (T, 1, B, H)
+        ys = ys[:, 0].transpose(0, 1)  # (B, T, H)
+        return ys * mask[:, :, None].to(ys.dtype)
+
+
 class BatchRNN(nn.Module):
-    """BN (all but the first layer) -> bidirectional GRU or LSTM,
-    directions summed."""
+    """BN (all but the first layer) -> the recurrent core: bidirectional
+    (``bi``, directions summed) or unidirectional (``fwd``)."""
 
     def __init__(self, h_in: int, hidden: int, batch_norm: bool,
                  compute_dtype: torch.dtype, rnn_type: str = "gru",
-                 rnn_impl: str = "scan"):
+                 rnn_impl: str = "scan", bidirectional: bool = True):
         super().__init__()
         self.bn = MaskedBatchNorm(h_in) if batch_norm else None
-        self.bi = BiRecurrentCore(h_in, hidden, compute_dtype, rnn_type, rnn_impl)
+        self.bidirectional = bidirectional
+        if bidirectional:
+            self.bi = BiRecurrentCore(h_in, hidden, compute_dtype, rnn_type, rnn_impl)
+        else:
+            self.fwd = RecurrentCore(h_in, hidden, compute_dtype, rnn_type)
 
     def forward(self, x, lengths, train: bool = False):
         mask = _time_mask(lengths, x.shape[1])
         if self.bn is not None:
             x = self.bn(x, mask, train)
+        if not self.bidirectional:
+            return self.fwd(x, mask)
         t_max = x.shape[1]
         mask_bwd = (torch.arange(t_max, device=x.device)[None, :]
                     >= (t_max - lengths)[:, None])
@@ -281,13 +358,34 @@ class BatchRNN(nn.Module):
         return out * mask[:, :, None].to(out.dtype)
 
 
+class Lookahead(nn.Module):
+    """Per-feature convolution over the next ``context`` frames, no bias,
+    then HardTanh(0, 20) (``tpuasr/model/ds2.py:574 Lookahead``). The
+    kernel keeps flax's (ctx, 1, H) layout; it runs as a depthwise
+    ``conv1d`` with right padding ctx - 1 (an XLA conv in the JAX
+    package, not a Pallas kernel)."""
+
+    def __init__(self, context: int, hidden: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.context = context
+        self.dtype = compute_dtype
+        self.kernel = nn.Parameter(torch.zeros(context, 1, hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        w = self.kernel.to(dt).permute(2, 1, 0)  # (H, 1, ctx)
+        y = F.conv1d(F.pad(x.to(dt).transpose(1, 2), (0, self.context - 1)), w,
+                     groups=w.shape[0])
+        return y.transpose(1, 2).clamp(0.0, 20.0)
+
+
 class DeepSpeech2(nn.Module):
     """(B, T, F) log-spectrograms + frame lengths -> (B, T', n_classes)
     f32 logits + output lengths; ``train`` selects BatchNorm's mode."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        _unsupported(config)
+        _check_config(config)
         self.config = cfg = config
         dt = cfg.torch_compute_dtype
         chans = [1] + [cfg.conv_channels] * len(CONV_SPECS)
@@ -298,8 +396,11 @@ class DeepSpeech2(nn.Module):
         self.rnns = nn.ModuleList(
             BatchRNN(h_in if i == 0 else cfg.hidden_size, cfg.hidden_size,
                      batch_norm=i > 0, compute_dtype=dt,
-                     rnn_type=cfg.rnn_type, rnn_impl=cfg.rnn_impl)
+                     rnn_type=cfg.rnn_type, rnn_impl=cfg.rnn_impl,
+                     bidirectional=cfg.bidirectional)
             for i in range(cfg.hidden_layers))
+        self.lookahead = (Lookahead(cfg.lookahead_context, cfg.hidden_size, dt)
+                          if not cfg.bidirectional and cfg.lookahead_context > 0 else None)
         self.head_bn = MaskedBatchNorm(cfg.hidden_size)
         self.head_kernel = nn.Parameter(torch.zeros(cfg.hidden_size, cfg.n_classes))
 
@@ -325,6 +426,8 @@ class DeepSpeech2(nn.Module):
         rnn_lengths = out_lengths if ml is None else ml
         for rnn in self.rnns:
             x = rnn(x, rnn_lengths, train)
+        if self.lookahead is not None:  # tpuasr/model/ds2.py:645-651
+            x = self.lookahead(x)
         mask = _time_mask(rnn_lengths, x.shape[1])
         x = self.head_bn(x, mask, train)
         logits = torch.matmul(x, self.head_kernel.to(dt)).to(torch.float32)
