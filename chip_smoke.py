@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of tpuasr_torch: the training, beam-search evaluation
 and batch serving paths on one card, for the BiGRU flagship and for its
-BiLSTM and gate-major BiGRU variants, and the unidirectional flagship's
-training, serving and live streaming.
+BiLSTM and gate-major BiGRU variants, the unidirectional flagship's
+training, serving and live streaming, and reference ``.pth`` packages
+and the C++ host beam.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -18,9 +19,11 @@ non-zero without printing a result:
 
   1. device  — the card's name, count, and nvidia-smi name and power limit.
   2. build   — nvcc builds every kernel of the paths from the sources in
-               tpuasr_torch/ops/csrc (sm_90a), one nvcc per source, all
-               started together; build seconds and ptxas' registers,
-               shared memory and spills.
+               tpuasr_torch/ops/csrc (sm_90a), one nvcc per source, and
+               the host compiler the C++ beam search
+               (tpuasr_torch/decode/csrc/ctc_beam.cpp), all started
+               together; build seconds and ptxas' registers, shared
+               memory and spills.
   3. kernel  — each kernel's wrapper against its plain PyTorch version
                on the card, at the main paths' shapes and small edge
                shapes, with the tolerances below; then CUDA-event times
@@ -171,7 +174,26 @@ non-zero without printing a result:
                driven by scripts/stream_load_test.py --streams 8 --seconds
                20 (x_realtime, feed and close latencies), every stream
                finished, both servers stopped.
- 11. a {"kernels": [...]} line (all nine kernels, launches by path, the
+ 11. compat_native — slice 11's paths. The BiGRU and BiLSTM checkpoints
+               of phases 4 and 8 exported by ``python -m
+               tpuasr_torch.compat.torch_export`` (both processes started
+               together), each ``.pth`` read by load_torch_package and
+               served by TranscriptionService beside its ``.tpuasr``
+               (warm-up, phase 7's 32 x 5 s batch, one request): logits
+               bit-equal, the same texts, K1f or K4f launched. Then
+               cli.test --decoder beam-native (the C++ host beam, 8
+               threads) against --decoder beam (the Python host beam) with
+               phase 6's word trigram on 8 validation utterances of the
+               flagship with its head sharpened by BEAM_HEAD_GAIN: the
+               same summary and hypotheses, utt/s of both beside
+               beam-device's, K1f launched; both decoders on the trained
+               head's logits of 4 utterances, their characters matched
+               printed. Then StreamingTranscriber(beam_impl="native") on
+               phase 10's 20 s wave and sharpened head against the host
+               engine's text and offsets, and cli.transcribe --streaming
+               --decoder beam --beam-impl native on the unidirectional
+               checkpoint. The phase prints its wall time.
+ 12. a {"kernels": [...]} line (all nine kernels, launches by path, the
      RNN kernels' D=1 times beside them), then the nvidia-smi line, then
      the last line {"ok": true, "device": {...}}.
 
@@ -2278,15 +2300,8 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None, path: str =
 
         # one service-shaped batch (the short requests, padded to the
         # 5 s bucket and 32 rows), kernel vs plain loop on the card
-        from scipy.io import wavfile
-
-        waves = [wavfile.read(io.BytesIO(b))[1] for b in
-                 ([wav_bytes(5.0, seed=100 + j) for j in range(32)] if full_batch
-                  else bodies[:n_short])]
-        arr = np.zeros((32, svc.spec.bucket_samples(svc.spec.bucket_of(5.0))), np.int16)
-        lens = np.zeros((32,), np.int32)
-        for j, w in enumerate(waves):
-            arr[j, :len(w)], lens[j] = w, len(w)
+        arr, lens = service_batch(svc, [wav_bytes(5.0, seed=100 + j) for j in range(32)]
+                                  if full_batch else bodies[:n_short])
         logits_k, out_len = svc.eval_step(arr, lens)
         with mock.patch.object(ds2, fwd_name, plain):
             logits_p, _ = svc.eval_step(arr, lens)
@@ -2319,6 +2334,19 @@ def phase_serve(smi: str, name: str, device: str = "cuda", cfg=None, path: str =
         svc.close()
         serve_thread.join(timeout=10)
     return launches
+
+
+def service_batch(svc, bodies) -> tuple:
+    """WAV bodies as one service batch: int16 rows padded to the 5 s
+    bucket and 32 rows, and their lengths."""
+    from scipy.io import wavfile
+
+    arr = np.zeros((32, svc.spec.bucket_samples(svc.spec.bucket_of(5.0))), np.int16)
+    lens = np.zeros((32,), np.int32)
+    for j, body in enumerate(bodies):
+        w = wavfile.read(io.BytesIO(body))[1]
+        arr[j, :len(w)], lens[j] = w, len(w)
+    return arr, lens
 
 
 def batch_breakdown(svc, arr, lens, fwd_name: str = "bigru_forward") -> dict:
@@ -3207,22 +3235,270 @@ def phase_stream(smi: str, name: str, paths, lm_path: str) -> dict:
     load = load_tests(ckpt, lm_path, smi)
     return {"train": res["launches"], "serve": serve_launches,
             "offline": parity["offline_k1f_launches"], "beam": beam["k3_launches"],
-            "ticks": ticks, "load": load}
+            "ticks": ticks, "load": load, "ckpt": ckpt}
+
+
+# ------------------------------------------------------- compat and native
+
+# utterances of the validation set that the Python host beam decodes
+# against the C++ one (its search takes ~12 ms a frame on the host)
+NATIVE_UTTS = 8
+
+
+def export_pth(ckpts: dict) -> dict:
+    """``python -m tpuasr_torch.compat.torch_export`` for each
+    checkpoint, the processes started together; ``<ckpt>.pth`` each."""
+    procs = {k: subprocess.Popen([sys.executable, "-m", "tpuasr_torch.compat.torch_export",
+                                  str(c), str(c.with_suffix(".pth"))], cwd=ROOT,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for k, c in ckpts.items()}
+    pths = {}
+    for k, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        pths[k] = ckpts[k].with_suffix(".pth")
+        check(proc.returncode == 0 and out.strip() == f"wrote {pths[k]}",
+              f"torch_export {ckpts[k]}: rc {proc.returncode}: {out[-2000:]}")
+    return pths
+
+
+def pth_serving(path: str, ckpt, pth, smi: str, device: str = "cuda") -> dict:
+    """The ``.tpuasr`` checkpoint and its exported ``.pth`` package (read
+    by load_torch_package) each served by TranscriptionService: warm-up,
+    phase_serve's 32 x 5 s batch and one request. The logits must be bit
+    for bit the same (the weights are the same f32 values), and so the
+    texts; the path's forward kernel is counted from the ``.pth``
+    service's start."""
+    import torch
+
+    from tpuasr_torch.compat.torch_import import load_torch_package
+    from tpuasr_torch.serve import ServeConfig, TranscriptionService
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+
+    mod, fwd_name = rnn_path(path)[:2]
+    kernel = getattr(mod, fwd_name)
+    bodies = [wav_bytes(5.0, seed=100 + j) for j in range(32)]
+    res = {}
+    for label, model_path, pkg in (("tpuasr", ckpt, load_checkpoint(str(ckpt))),
+                                   ("pth", pth, load_torch_package(str(pth)))):
+        kernel.launches = 0  # ---- the main path starts here
+        svc = TranscriptionService(str(model_path), ServeConfig(max_batch=32,
+                                                                warmup_seconds=(5.0,)),
+                                   package=pkg, device=device)
+        try:
+            arr, lens = service_batch(svc, bodies)
+            logits, out_len = svc.eval_step(arr, lens)
+            texts = svc.decoder.decode(logits, out_len)
+            answer = svc.transcribe_wav_bytes(bodies[0])
+            launches = kernel.launches  # ---- and ends here
+            batch_ms = time_ms(lambda: svc.eval_step(arr, lens), iters=5) \
+                if device == "cuda" else None
+        finally:
+            svc.close()
+        res[label] = {"logits": logits, "texts": texts, "answer": answer,
+                      "launches": launches, "batch_ms": batch_ms,
+                      "config": pkg.model_config.to_dict()}
+    a, b = res["tpuasr"], res["pth"]
+    row = {"path": path, "pth_mbytes": pth.stat().st_size / 1e6,
+           "config_equal": a["config"] == b["config"],
+           "logits_max_abs_diff": (a["logits"] - b["logits"]).abs().max().item(),
+           "texts_equal": a["texts"] == b["texts"] and a["answer"] == b["answer"],
+           "launches": b["launches"], "batch_ms_tpuasr": a["batch_ms"],
+           "batch_ms_pth": b["batch_ms"], "logits_finite": bool(torch.isfinite(b["logits"]).all())}
+    emit("serve_pth", nvidia_smi=smi, kernel=fwd_name, **row)
+    check(row["config_equal"] and row["logits_max_abs_diff"] == 0.0 and row["texts_equal"]
+          and row["logits_finite"], f"the .pth package served vs the .tpuasr one: {row}")
+    check(row["launches"] > 0 or device != "cuda", f"{fwd_name} never launched serving {pth}")
+    return row
+
+
+def chars_matched(a: list, b: list) -> tuple:
+    """(characters matched, characters) of two lists of texts: the longer
+    text's length less the edit distance, summed."""
+    from tpuasr_torch.decode.metrics import levenshtein
+
+    total = sum(max(len(x), len(y)) for x, y in zip(a, b))
+    return total - sum(levenshtein(x, y) for x, y in zip(a, b)), total
+
+
+def sharpened(pkg, gain: float = BEAM_HEAD_GAIN):
+    """A checkpoint package with its head scaled by ``gain`` and run in
+    f32 compute: the engine checks' model. bf16 logits hold many exactly
+    equal values, so paths of exactly equal probability are common; the
+    C++ search (f32 scores) sees such paths tie and breaks the tie by
+    prefix, where the Python search's f64 rounding orders them at random."""
+    import dataclasses
+
+    params = pkg.variables["params"]
+    head = {**params["head"], "kernel": params["head"]["kernel"] * np.float32(gain)}
+    return dataclasses.replace(
+        pkg, model_config=dataclasses.replace(pkg.model_config, compute_dtype="float32"),
+        variables={**pkg.variables, "params": {**params, "head": head}})
+
+
+def native_batch_decode(ckpt, paths, lm_path: str, smi: str, device_utt_s,
+                        device: str = "cuda") -> dict:
+    """``cli.test --decoder beam-native`` (the C++ host beam, 8 threads)
+    against ``--decoder beam`` (the Python host beam) with the word
+    trigram, on NATIVE_UTTS validation utterances of the checkpoint
+    ``sharpened``: the same summary and hypotheses (utt/s of the warm
+    second pass); then both decoders on the same logits of the trained
+    (bf16) model, whose agreement (characters matched) is printed, not
+    checked."""
+    import tpuasr_torch.ops.gru as gru_mod
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.decode.beam_host import BeamCTCDecoder
+    from tpuasr_torch.decode.native import NativeBeamDecoder
+    from tpuasr_torch.serve import ServeConfig, TranscriptionService
+    from tpuasr_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    work = ROOT / "build" / "chip_smoke"
+    lines = Path(paths["val"]).read_text().splitlines()[:NATIVE_UTTS]
+    manifest = work / "val_native.csv"
+    manifest.write_text("".join(ln + "\n" for ln in lines))
+    pkg = load_checkpoint(str(ckpt))
+    sharp_pkg = sharpened(pkg)
+    sharp = work / "sharp.ckpt"
+    save_checkpoint(str(sharp), sharp_pkg)
+    runs = {}
+    for dec in ("beam-native", "beam"):
+        hyps = work / f"hyps_{dec}.jsonl"
+        argv = ["--model-path", str(sharp), "--test-manifest", str(manifest), "--decoder", dec,
+                "--lm-path", lm_path, "--beam-width", str(BEAM_W), "--lm-workers", "8",
+                "--batch-size", "32", "--timing", "--timing-repeats", "2",
+                "--save-output", str(hyps), "--device", device]
+        gru_mod.bigru_forward.launches = 0  # ---- the main path starts here
+        rc, out = run_cli(test_cli.main, argv)
+        runs[dec] = {**parse_summary(out), "launches": gru_mod.bigru_forward.launches,
+                     "hyps": hyps.read_text()}  # ---- and ends here
+        check(rc == 0 and "wer" in runs[dec] and runs[dec]["utts"] == len(lines),
+              f"cli.test --decoder {dec}: {out}")
+    nat, host = runs["beam-native"], runs["beam"]
+    same = (nat["wer"], nat["cer"], nat["hyps"]) == (host["wer"], host["cer"], host["hyps"])
+
+    def batch_logits(package, n):
+        svc = TranscriptionService(str(ckpt), ServeConfig(max_batch=32), package=package,
+                                   device=device)
+        try:
+            arr, lens = service_batch(svc, [Path(ln.split(",")[0]).read_bytes()
+                                            for ln in lines[:n]])
+            return svc.eval_step(arr[:n], lens[:n])
+        finally:
+            svc.close()
+
+    if not same:  # the logits both decoders read, for a replay on the host
+        logits, out_len = batch_logits(sharp_pkg, len(lines))
+        dump = ROOT / "build" / "chip_smoke" / "native_decode_mismatch"
+        dump.mkdir(parents=True, exist_ok=True)
+        np.savez(dump / "logits.npz", logits=logits.float().cpu().numpy(),
+                 lengths=out_len.cpu().numpy())
+        (dump / "hyps.json").write_text(json.dumps({"native": nat["hyps"],
+                                                    "host": host["hyps"],
+                                                    "labels": pkg.alphabet.labels}))
+        (dump / "lm.arpa").write_bytes(Path(lm_path).read_bytes())
+    logits, out_len = batch_logits(pkg, NATIVE_UTTS // 2)
+    kw = dict(lm_path=lm_path, beam_width=BEAM_W)
+    matched, chars = chars_matched(
+        NativeBeamDecoder(pkg.alphabet, num_processes=8, **kw).decode(logits, out_len),
+        BeamCTCDecoder(pkg.alphabet, **kw).decode(logits, out_len))
+    row = {"utts": len(lines), "head_gain": BEAM_HEAD_GAIN, "compute_dtype": "float32",
+           "wer": nat["wer"], "cer": nat["cer"], "summaries_and_hyps_equal": same,
+           "native_utt_per_s": nat["utt_per_s"], "host_utt_per_s": host["utt_per_s"],
+           "beam_device_utt_per_s": device_utt_s, "k1f_launches": nat["launches"],
+           "trained_bf16_utts": NATIVE_UTTS // 2, "trained_bf16_chars_matched": matched,
+           "trained_bf16_chars": chars}
+    emit("decode_native", nvidia_smi=smi, **row)
+    check(same, f"beam-native vs beam: {nat} vs {host}")
+    check(nat["launches"] > 0 or device != "cuda", "K1f never launched in cli.test beam-native")
+    return row
+
+
+def native_streaming(ckpt, lm_path: str, smi: str, device: str = "cuda") -> dict:
+    """StreamingTranscriber(beam_impl="native") against beam_impl="host"
+    on phase 10's 20 s wave, with the unidirectional checkpoint
+    ``sharpened``: the same text and offsets; then ``cli.transcribe
+    --streaming --decoder beam --beam-impl native`` on the checkpoint."""
+    from tpuasr_torch.cli import transcribe
+    from tpuasr_torch.compat.weights import model_from_variables
+    from tpuasr_torch.decode.lm import load_lm
+    from tpuasr_torch.device import resolve_device
+    from tpuasr_torch.stream import StreamingTranscriber
+    from tpuasr_torch.train.checkpoint import load_checkpoint
+
+    pkg = sharpened(load_checkpoint(str(ckpt)))
+    model = model_from_variables(pkg.variables, pkg.model_config, resolve_device(device))
+    lm = load_lm(lm_path)
+    wave = wave_of(wav_bytes(STREAM_SECONDS, seed=8))
+    out = {}
+    for impl in ("native", "host"):
+        st = StreamingTranscriber(model, model.config, pkg.frontend_config, pkg.alphabet,
+                                  chunk_frames=STREAM_CHUNK_FRAMES, decoder="beam", lm=lm,
+                                  beam_impl=impl, collect_logits=True, device=device)
+        t0 = time.perf_counter()
+        for i in range(0, len(wave), 5000):
+            st.feed(wave[i:i + 5000])
+        st.flush()
+        out[impl] = {"text": st.text, "offsets": st.offsets.tolist(),
+                     "wall_s": time.perf_counter() - t0, "rows": st.logits()}
+    nat, host = out["native"], out["host"]
+    row = {"head_gain": BEAM_HEAD_GAIN, "compute_dtype": "float32",
+           "same_text": nat["text"] == host["text"],
+           "same_offsets": nat["offsets"] == host["offsets"], "chars": len(nat["text"]),
+           "native_wall_s": nat["wall_s"], "host_wall_s": host["wall_s"]}
+    if not (row["same_text"] and row["same_offsets"]):
+        # the rows both engines decoded, for a replay on the host
+        dump = ROOT / "build" / "chip_smoke" / "native_stream_mismatch"
+        dump.mkdir(parents=True, exist_ok=True)
+        np.savez(dump / "rows.npz", rows=nat["rows"], host_rows=host["rows"])
+        (dump / "texts.json").write_text(json.dumps({
+            k: {"text": v["text"], "offsets": v["offsets"]} for k, v in out.items()}))
+        (dump / "lm.arpa").write_bytes(Path(lm_path).read_bytes())
+    wav20 = ROOT / "build" / "chip_smoke" / "long20.wav"
+    t0 = time.perf_counter()
+    rc, lines = run_cli(transcribe.main, [
+        "--model-path", str(ckpt), "--audio-path", str(wav20), "--streaming",
+        "--decoder", "beam", "--lm-path", lm_path, "--beam-impl", "native",
+        "--device", device])
+    row.update(cli_rc=rc, cli_wall_s=time.perf_counter() - t0, cli_chars=len("".join(lines)))
+    emit("stream_native", nvidia_smi=smi, **row)
+    check(row["same_text"] and row["same_offsets"], f"native vs host stream beam: {row}")
+    check(rc == 0, f"cli.transcribe --streaming --beam-impl native: {rc} {lines}")
+    return row
+
+
+def phase_compat_native(smi: str, ckpts: dict, paths, lm_path: str, device_utt_s,
+                        uni_ckpt, device: str = "cuda") -> dict:
+    """Slice 11: the BiGRU and BiLSTM checkpoints exported to ``.pth``
+    and served from it, the C++ host beam in cli.test against the Python
+    one, and native streaming sessions against the host engine."""
+    t0 = time.perf_counter()
+    pths = export_pth(ckpts)
+    served = {path: pth_serving(path, ckpts[path], pths[path], smi, device) for path in ckpts}
+    decode = native_batch_decode(ckpts["gru"], paths, lm_path, smi, device_utt_s, device)
+    native_streaming(uni_ckpt, lm_path, smi, device)
+    emit("compat_native_wall", seconds=time.perf_counter() - t0)
+    return {"serve_pth_gru": served["gru"]["launches"],
+            "serve_pth_lstm": served["lstm"]["launches"],
+            "test_beam_native": decode["k1f_launches"]}
 
 
 def build_all(names) -> None:
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source and the host compiler for the C++ beam
+    search, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from tpuasr_torch.decode.native import SOURCE
     from tpuasr_torch.ops import _build
 
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(_build.build_host, SOURCE)
         list(pool.map(_build.build, names))  # raises with nvcc's output
+        host.result()  # raises with the compiler's output
     for n in names:
         info = _build.build_info[n]
         emit("build", kernel=n, seconds=info["seconds"],
              ptxas=[ln.strip() for ln in info["log"].splitlines()
                     if "registers" in ln or "smem" in ln or "spill" in ln])
+    emit("build", host_library=SOURCE.name, seconds=_build.build_info[SOURCE.name]["seconds"])
 
 
 def kernel_entry(name, replaces, err, timing, launches: dict, **extra):
@@ -3288,7 +3564,7 @@ def main() -> int:
     serve_launches = phase_serve(smi, name)
     # the BiLSTM and the gate-major BiGRU: one epoch (2 steps and a
     # validation) on the same corpus, then their checkpoints served
-    launches = {}
+    launches, ckpts = {}, {"gru": out / "best.ckpt"}
     for path in ("lstm", "gru2"):
         res, p_out, _ = phase_train(smi, name, path=path, epochs=1, paths=paths)
         train_step_parity(p_out, paths, path=path)
@@ -3296,11 +3572,15 @@ def main() -> int:
         launches[path] = (res["launches"], phase_serve(
             smi, name, path=path, ckpt=p_out / "best.ckpt", durations=(1.0, 2.2, 3.4, 5.0),
             long_request=False, warmup=(5.0,)))
+        ckpts[path] = p_out / "best.ckpt"
     aug = phase_augment_resident(smi, name, out, paths)
     # slice 10: K1 and K4 with one direction, then the unidirectional
     # flagship trained, served offline and streamed
     d1 = phase_kernel_d1(smi)
     stream = phase_stream(smi, name, paths, lm_word)
+    # slice 11: .pth export and serving, the C++ host beam batch and streaming
+    compat = phase_compat_native(smi, {k: ckpts[k] for k in ("gru", "lstm")}, paths, lm_word,
+                                 decode_res["word"]["utt_per_s"], stream["ckpt"])
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
@@ -3327,7 +3607,9 @@ def main() -> int:
                                              test_resident_greedy=aug["greedy"]["bigru_forward"],
                                              test_resident_beam=aug["beam"]["bigru_forward"],
                                              serve_uni=stream["serve"],
-                                             stream_offline_uni=stream["offline"]),
+                                             stream_offline_uni=stream["offline"],
+                                             serve_pth_gru=compat["serve_pth_gru"],
+                                             test_beam_native=compat["test_beam_native"]),
                      timings=k1f_timings, **d1_of("bigru_forward"), card=smi),
         kernel_entry("bigru_bwd", "tpuasr/ops/gru.py:100 _bwd_kernel", k1b_row["max_abs_err"],
                      k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
@@ -3347,7 +3629,8 @@ def main() -> int:
                      timings=beam_timings, limits=limit_rows, card=smi),
         kernel_entry("bilstm_fwd", "tpuasr/ops/lstm.py:62 _fwd_kernel", k4_err["bilstm_fwd"],
                      k4_timings["bilstm_fwd"][0],
-                     by_path("bilstm_forward", serve_lstm=lstm_serve),
+                     by_path("bilstm_forward", serve_lstm=lstm_serve,
+                             serve_pth_lstm=compat["serve_pth_lstm"]),
                      timings=k4_timings["bilstm_fwd"], **d1_of("bilstm_forward"), card=smi),
         kernel_entry("bilstm_bwd", "tpuasr/ops/lstm.py:94 _bwd_kernel", k4_err["bilstm_bwd"],
                      k4_timings["bilstm_bwd"][0], by_path("bilstm_backward"),

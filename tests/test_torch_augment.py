@@ -18,6 +18,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 from tpuasr.audio import augment as jaug
 from tpuasr.cli import noise_inject as jax_noise_inject
 from tpuasr_torch.audio import augment as aug

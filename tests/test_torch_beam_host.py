@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.decode.beam_host as jhost
 from tpuasr.decode.beam import DeviceBeamDecoder as JaxDeviceBeamDecoder
 from tpuasr.decode.lm import train_ngram as jax_train_ngram

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.decode.beam as jbeam
 import tpuasr_torch.decode.beam as tbeam
 from tpuasr.decode.lm import train_ngram as jax_train_ngram

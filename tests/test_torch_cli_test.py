@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+from torch_helpers import one_intra_op_thread, use_private_tpuasr_native  # noqa: F401
 from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig
 from tpuasr.cli import test as jax_test_cli
 from tpuasr.labels import Alphabet as JaxAlphabet
@@ -41,10 +42,14 @@ def setup(tmp_path_factory):
     return root, ckpt, corpus["train"], lm
 
 
-@pytest.mark.parametrize("decoder", [["greedy"], ["beam", "lm"], ["beam-device", "lm"]],
-                         ids=["greedy", "beam-word-lm", "beam-device-word-lm"])
-def test_summary_equals_tpuasr(setup, decoder, capsys):
+@pytest.mark.parametrize("decoder", [["greedy"], ["beam", "lm"], ["beam-device", "lm"],
+                                     ["beam-native", "lm"]],
+                         ids=["greedy", "beam-word-lm", "beam-device-word-lm",
+                              "beam-native-word-lm"])
+def test_summary_equals_tpuasr(setup, decoder, capsys, tmp_path, monkeypatch):
     root, ckpt, manifest, lm = setup
+    if decoder[0] == "beam-native":
+        use_private_tpuasr_native(tmp_path, monkeypatch)
     lm_args = ["--lm-path", lm, "--alpha", "0.8", "--beta", "1.0"] if "lm" in decoder else []
     summaries, hyps = [], []
     for name, main, extra in (("jax", jax_test_cli.main, []),
@@ -62,8 +67,8 @@ def test_summary_equals_tpuasr(setup, decoder, capsys):
     assert len(hyps[0]) == 8 and hyps[1] == hyps[0]
 
 
-@pytest.mark.parametrize("decoder", ["beam", "beam-device"])
-def test_transcribe_n_best_equals_tpuasr(setup, decoder, capsys):
+@pytest.mark.parametrize("decoder", ["beam", "beam-device", "beam-native"])
+def test_transcribe_n_best_equals_tpuasr(setup, decoder, capsys, tmp_path, monkeypatch):
     """``cli.transcribe --n-best 3 --offsets`` prints tpuasr's rows with
     the word LM: texts and frames exact, the printed scores within 1e-5
     relative (the device beam's f32 scores may differ from the XLA
@@ -72,6 +77,8 @@ def test_transcribe_n_best_equals_tpuasr(setup, decoder, capsys):
     from tpuasr_torch.cli import transcribe
 
     root, ckpt, manifest, lm = setup
+    if decoder == "beam-native":
+        use_private_tpuasr_native(tmp_path, monkeypatch)
     wav = open(manifest).readline().split(",")[0]
     argv = ["--model-path", ckpt, "--audio-path", wav, "--decoder", decoder,
             "--lm-path", lm, "--alpha", "0.8", "--beta", "1.0", "--beam-width", "5",

@@ -17,6 +17,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.ops.ctc as jax_ctc_ops
 from tpuasr.ctc.loss import ctc_loss as jax_ctc_scan
 from tpuasr.ctc.loss import ctc_loss_mean as jax_ctc_loss_mean

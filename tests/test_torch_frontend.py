@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig
 from tpuasr.audio.frontend import log_spectrogram as jax_log_spectrogram
 from tpuasr.train.step import _waves_to_float as jax_waves_to_float

@@ -24,7 +24,7 @@ import torch
 
 import tpuasr.ops.gru as jax_gru
 import tpuasr.ops.gru2 as jax_gru2
-from torch_helpers import gate_major, gru_inputs
+from torch_helpers import gate_major, gru_inputs, one_intra_op_thread  # noqa: F401 (fixture)
 from tpuasr_torch.ops.gru import BiGRUFunction, bigru_backward_reference, bigru_reference
 from tpuasr_torch.ops.gru2 import (
     BiGRU2Function,

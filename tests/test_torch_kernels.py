@@ -1103,3 +1103,37 @@ def test_device_beam_streams_on_the_card_match_the_cpu(cuda):  # noqa: F811
                      beam_scan.launches - before))
     assert out[0][:2] == out[1][:2]
     assert out[0][2] == len(ticks) and out[1][2] == 0
+
+
+@pytest.mark.cuda
+def test_host_decoders_read_logits_on_the_card(cuda):  # noqa: F811
+    """The C++ host beam and the Python host beam take logits (and
+    lengths) that K1f's eval forward left on the card, and give the texts,
+    offsets and n-best rows they give for the same logits moved to the
+    CPU first."""
+    from tpuasr_torch.compat.weights import init_variables, model_from_variables
+    from tpuasr_torch.decode.beam_host import BeamCTCDecoder
+    from tpuasr_torch.decode.native import NativeBeamDecoder
+    from tpuasr_torch.model.ds2 import ModelConfig
+
+    alphabet = Alphabet()
+    cfg = ModelConfig(n_classes=alphabet.size, hidden_size=64, hidden_layers=2,
+                      compute_dtype="float32")
+    model = model_from_variables(init_variables(cfg, seed=3), cfg, cuda)
+    feats = torch.from_numpy(np.random.RandomState(4).randn(3, 120, 161).astype(np.float32))
+    lengths = torch.tensor([120, 87, 40], dtype=torch.int32)
+    before = bigru_forward.launches
+    with torch.inference_mode():
+        logits, out_len = model(feats.to(cuda), lengths.to(cuda))
+    assert bigru_forward.launches > before and logits.is_cuda and out_len.is_cuda
+    for dec in (NativeBeamDecoder(alphabet, beam_width=8, num_processes=2),
+                BeamCTCDecoder(alphabet, beam_width=8)):
+        on_card = dec.decode(logits, out_len, return_offsets=True)
+        on_host = dec.decode(logits.cpu(), out_len.cpu(), return_offsets=True)
+        assert on_card[0] == on_host[0]
+        for a, b in zip(on_card[1], on_host[1]):
+            np.testing.assert_array_equal(a, b)
+        nb_card = dec.decode_nbest(logits, out_len, n_best=3)
+        nb_host = dec.decode_nbest(logits.cpu().numpy(), out_len.cpu().numpy(), n_best=3)
+        assert [[(t, s) for t, s, _ in rows] for rows in nb_card] == \
+            [[(t, s) for t, s, _ in rows] for rows in nb_host]

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 import tpuasr.ops.lstm as jax_lstm
-from torch_helpers import gru_inputs
+from torch_helpers import gru_inputs, one_intra_op_thread  # noqa: F401 (fixture)
 from tpuasr_torch.ops.lstm import (
     BiLSTMFunction,
     bilstm_backward,

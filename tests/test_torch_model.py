@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.ops.gru as jax_gru
 from tpuasr.model.ds2 import DeepSpeech2 as JaxDS2
 from tpuasr.model.ds2 import ModelConfig as JaxConfig

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 from tpuasr.data.buckets import make_buckets as jax_make_buckets
 from tpuasr.data.manifest import order_and_prune as jax_order_and_prune
 from tpuasr.data.manifest import read_manifest as jax_read_manifest

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.ops.ctc as jax_ctc_ops
 import tpuasr.ops.gru2 as jax_gru2
 import tpuasr.ops.lstm as jax_lstm

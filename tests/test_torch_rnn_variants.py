@@ -19,6 +19,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.ops.gru2 as jax_gru2
 import tpuasr.ops.lstm as jax_lstm
 from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig

@@ -17,6 +17,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_helpers import one_intra_op_thread, use_private_tpuasr_native  # noqa: F401
 from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig
 from tpuasr.data.buckets import BucketSpec as JaxBucketSpec
 from tpuasr.decode.greedy import GreedyDecoder as JaxGreedy
@@ -173,19 +174,25 @@ def test_long_wave_matches_jax_longform(service, jax_side):
     assert text and (text, offsets) == (want[0], want[1].tolist())
 
 
-def test_transcribe_cli_prints_jax_text(ckpt, tmp_path, capsys):
+def test_transcribe_cli_prints_jax_text(ckpt, tmp_path, capsys, monkeypatch):
+    """Greedy, then ``--decoder beam-native`` (the C++ host beam, with a
+    word LM), then its n-best rows: the port's CLI prints tpuasr's lines."""
     from tpuasr.cli.transcribe import main as jax_main
     from tpuasr_torch.cli.transcribe import main
+    from tpuasr_torch.decode.lm import train_ngram
 
+    use_private_tpuasr_native(tmp_path, monkeypatch)
     wav = str(tmp_path / "u.wav")
     wavfile.write(wav, SR, (_waves(4, [13000])[0] * 32767).astype(np.int16))
+    lm = str(tmp_path / "lm.arpa")
+    train_ngram(["ALO MUNDO", "BOM DIA", "TUDO BEM", "OLA MUNDO"], order=2).save(lm)
     args = ["--model-path", ckpt, "--audio-path", wav, "--offsets"]
-    assert jax_main(args) == 0
-    want = capsys.readouterr().out
-    assert main(args + ["--device", "cpu"]) == 0
-    assert capsys.readouterr().out == want
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(args + ["--device", "cpu", "--decoder", "beam-native"])
+    native = ["--decoder", "beam-native", "--lm-path", lm, "--beam-width", "4"]
+    for extra in ([], native, native + ["--n-best", "3"]):
+        assert jax_main(args + extra) == 0
+        want = capsys.readouterr().out
+        assert main(args + extra + ["--device", "cpu"]) == 0
+        assert capsys.readouterr().out == want and want.strip()
 
 
 @pytest.mark.parametrize("long_audio", ["reject", "truncate"])
@@ -206,11 +213,32 @@ def test_long_audio_policies(ckpt, long_audio):
         svc.close()
 
 
-def test_serve_cli_rejects_unported_modes(ckpt):
-    from tpuasr_torch.cli.serve import main
+def test_serve_cli_rejects_unported_modes(ckpt, monkeypatch):
+    """Named when ``--decoder beam-native`` was still refused: the server
+    now starts with the C++ host beam (``--lm-workers`` threads) behind
+    its batch service."""
+    from tpuasr_torch.cli import serve as serve_cli
+    from tpuasr_torch.decode.native import NativeBeamDecoder
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--model-path", ckpt, "--decoder", "beam-native", "--device", "cpu"])
+    seen = {}
+
+    class Server:
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def fake_server(service, host, port, stream_service=None):
+        seen.update(service=service)
+        return Server()
+
+    monkeypatch.setattr(serve_cli, "make_http_server", fake_server)
+    assert serve_cli.main(["--model-path", ckpt, "--decoder", "beam-native",
+                           "--lm-workers", "3", "--warmup-seconds", "0.5",
+                           "--device", "cpu"]) == 0
+    decoder = seen["service"].decoder
+    assert isinstance(decoder, NativeBeamDecoder) and decoder.num_threads == 3
 
 
 def test_service_with_device_beam_matches_jax(ckpt, jax_side, monkeypatch):

@@ -24,6 +24,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from torch_helpers import one_intra_op_thread, use_private_tpuasr_native  # noqa: F401
 from tpuasr_torch.audio.frontend import FrontendConfig, corpus_feature_stats, log_spectrogram
 from tpuasr_torch.compat.weights import init_variables, model_from_variables
 from tpuasr_torch.decode.beam_host import prefix_beam_search
@@ -82,17 +83,6 @@ def _stream(st, wave, step):
 
 def _prime(fe):
     return (0.9, 0.4, 50.0) if fe.normalize else None
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """These tests run many small torch ops (the chunk loop, K3's plain
-    version); with the suite's workers sharing the cores, one intra-op
-    thread a worker runs them many times faster."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ vs tpuasr
@@ -329,12 +319,66 @@ def test_device_beam_matches_host(with_lm):
     assert dev_multi[0][0] == dev_text
 
 
-def test_native_beam_raises_naming_its_roadmap_item():
+def test_native_beam_raises_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """Named when ``beam_impl="native"`` still raised (ROADMAP §1.5). The
+    C++ sessions now stream: one stream and two sharing the ticks give
+    tpuasr's ``beam_impl="native"`` text and offsets, and the host
+    engine's, with a word LM; a reset stream and a reused slot decode
+    afresh on their kept sessions; ``auto`` means native on the CPU."""
+    from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig
+    from tpuasr.decode.lm import train_ngram as jax_train_ngram
+    from tpuasr.labels import Alphabet as JaxAlphabet
+    from tpuasr.model.ds2 import ModelConfig as JaxConfig
+    from tpuasr.stream import MultiStreamTranscriber as JaxMulti
+    from tpuasr.stream import StreamingTranscriber as JaxStreaming
+
+    use_private_tpuasr_native(tmp_path, monkeypatch)
     cfg, variables = _setup("gru")
-    for cls in (StreamingTranscriber, MultiStreamTranscriber):
-        with pytest.raises(NotImplementedError, match="§1.5"):
-            cls(variables, cfg, FrontendConfig(), ABC, beam_impl="native", device="cpu",
-                **BEAM)
+    fe = FrontendConfig(normalize=False)
+    jargs = (variables, JaxConfig.from_dict(cfg.to_dict()),
+             JaxFrontendConfig(normalize=False), JaxAlphabet(labels=ABC.labels))
+    lm, jlm = train_ngram(LM_LINES, order=2), jax_train_ngram(LM_LINES, order=2)
+    waves = [_wave(7, 10000), _wave(8, 7000)]
+
+    want = _stream(JaxStreaming(*jargs, chunk_frames=16, lm=jlm, beam_impl="native",
+                                **BEAM), waves[0], 901)
+    assert want._native is not None and len(want.text) >= 4
+    st = StreamingTranscriber(variables, cfg, fe, ABC, chunk_frames=16, lm=lm,
+                              device="cpu", **BEAM)  # auto
+    assert st.beam_impl == "native" and st._native is not None
+    host = _stream(StreamingTranscriber(variables, cfg, fe, ABC, chunk_frames=16, lm=lm,
+                                        beam_impl="host", device="cpu", **BEAM),
+                   waves[0], 901)
+    session = st._native
+    for _ in range(2):  # the second run resets and reuses the session
+        _stream(st, waves[0], 901)
+        assert st.text == want.text == host.text
+        np.testing.assert_array_equal(st.offsets, want.offsets)
+        np.testing.assert_array_equal(st.offsets, host.offsets)
+        st.reset()
+    assert st._native is session
+
+    jmst = JaxMulti(*jargs, max_streams=2, chunk_frames=16, lm=jlm, beam_impl="native",
+                    **BEAM)
+    mst = MultiStreamTranscriber(variables, cfg, fe, ABC, max_streams=2, chunk_frames=16,
+                                 lm=lm, beam_impl="native", device="cpu", **BEAM)
+    got = []
+    for m in (jmst, mst):
+        sids = [m.open() for _ in waves]
+        _feed_all(m, sids, waves, (1234, 999))
+        for sid in sids:
+            m.flush(sid)
+        got.append([(m.text(s), m.offsets(s)) for s in sids])
+    for (jt, jo), (t, o) in zip(*got):
+        assert t == jt
+        np.testing.assert_array_equal(o, jo)
+    assert got[1][0][0] == want.text
+    mst.close(0)
+    sid = mst.open()  # the slot's session is reset, not rebuilt
+    assert sid == 0 and mst._slots[0].native is mst._natives[0]
+    _feed_all(mst, [sid], waves[1:], (777,))
+    mst.flush(sid)
+    assert mst.text(sid) == got[1][1][0]
 
 
 def test_streaming_refuses_a_bidirectional_model():
@@ -395,7 +439,9 @@ def test_stream_sessions_over_http(tmp_path):
 
 def test_serve_cli_wires_streaming(tmp_path, monkeypatch):
     """``cli.serve --streaming --decoder beam`` builds a beam session
-    service sharing the batch service's model, then serves both."""
+    service sharing the batch service's model, then serves both, with
+    ``--stream-beam-impl device`` or ``native`` (the default ``auto`` is
+    native on the CPU)."""
     from tpuasr_torch.cli import serve as serve_cli
 
     cfg, variables = _setup("gru")
@@ -423,9 +469,13 @@ def test_serve_cli_wires_streaming(tmp_path, monkeypatch):
     mst = seen["stream"]._mst
     assert mst.max_streams == 3 and mst.chunk_frames == 16 and mst.decoder == "beam"
     assert mst._dev_engine is not None and mst.model is seen["service"].model
-    with pytest.raises(NotImplementedError, match="§1.5"):
-        serve_cli.main(["--model-path", path, "--streaming", "--decoder", "beam",
-                        "--stream-beam-impl", "native", "--device", "cpu"])
+    assert serve_cli.main(["--model-path", path, "--streaming", "--decoder", "beam",
+                           "--stream-beam-impl", "native", "--device", "cpu"]) == 0
+    mst = seen["stream"]._mst
+    assert mst.beam_impl == "native" and len(mst._natives) == mst.max_streams == 8
+    assert serve_cli.main(["--model-path", path, "--streaming", "--decoder", "beam",
+                           "--device", "cpu"]) == 0
+    assert seen["stream"]._mst.beam_impl == "native"  # auto, on the CPU
 
 
 # ------------------------------------------------------------------- CLI

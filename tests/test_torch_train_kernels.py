@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import tpuasr.ops.gru as jax_gru
-from torch_helpers import gru_inputs
+from torch_helpers import gru_inputs, one_intra_op_thread  # noqa: F401 (fixture)
 from tpuasr_torch.ops.gru import (
     BiGRUFunction,
     bigru_backward,

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 from tpuasr.cli import train as jax_train_cli
 from tpuasr.train.checkpoint import load_checkpoint as jax_load_checkpoint
 from tpuasr_torch.cli import synth_corpus

@@ -23,6 +23,7 @@ import optax
 import pytest
 import torch
 
+from torch_helpers import one_intra_op_thread  # noqa: F401 (autouse fixture)
 import tpuasr.ops.ctc as jax_ctc_ops
 import tpuasr.ops.gru as jax_gru
 from tpuasr.audio.frontend import FrontendConfig as JaxFrontendConfig

@@ -5,6 +5,19 @@ import pytest
 import torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for the tests of a module that imports this
+    fixture. Their tensors are tiny and their loops many; with the
+    suite's workers sharing the cores, torch's default pool (a thread a
+    core in every worker) spins against the other workers and runs them
+    many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     """The CUDA device, or a skip where there is none (decided when the
@@ -40,3 +53,21 @@ def gate_major(xg, w_h, b_h):
     return (np.ascontiguousarray(xg.reshape(t, nd, b, 3, h).transpose(0, 1, 3, 2, 4)),
             np.ascontiguousarray(w_h.reshape(nd, h, 3, h).transpose(0, 2, 1, 3)),
             np.ascontiguousarray(b_h.reshape(nd, 3, h)))
+
+
+def use_private_tpuasr_native(tmp_dir, mp) -> None:
+    """Point tpuasr's native decoder (``tpuasr.decode.native``) at a build
+    of ``native/ctc_beam.cpp`` in ``tmp_dir`` (``native/Makefile``'s
+    flags), through the MonkeyPatch ``mp``. Its own library,
+    ``native/libtpuasr_native.so``, is deleted and rebuilt by
+    ``tests/test_native.py`` while other workers run."""
+    import subprocess
+
+    import tpuasr.decode.native as jnative
+
+    out = str(tmp_dir / "libtpuasr_native.so")
+    subprocess.run(["c++", "-O3", "-std=c++17", "-fPIC", "-Wall", "-march=native",
+                    "-shared", "-o", out, jnative._NATIVE_DIR + "/ctc_beam.cpp",
+                    "-lpthread"], check=True, capture_output=True)
+    mp.setattr(jnative, "_LIB_PATH", out)
+    mp.setattr(jnative, "_lib", None)

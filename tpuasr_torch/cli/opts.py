@@ -1,7 +1,8 @@
 """Shared CLI flags (port of ``tpuasr/cli/opts.py``): audio, model,
 decoder and runtime flags, plus ``--device``. The decoders are greedy,
-``beam`` (the host prefix beam with a word LM) and ``beam-device`` (K3,
-with a word or char LM); ``beam-native`` parses and then raises."""
+``beam`` (the host prefix beam with a word LM), ``beam-native`` (the C++
+host beam with a word LM, ``decode/native.py``) and ``beam-device`` (K3,
+with a word or char LM)."""
 
 from __future__ import annotations
 
@@ -76,7 +77,8 @@ def add_decoder_args(p: argparse.ArgumentParser) -> None:
         "--decoder", default="greedy",
         choices=["greedy", "beam", "beam-device", "beam-native"],
         help="greedy | beam (host Python, word LM) | beam-device (the K3 "
-        "kernel on the GPU, word or char LM) | beam-native (not ported)",
+        "kernel on the GPU, word or char LM) | beam-native (host C++, "
+        "word LM; --lm-workers threads)",
     )
     p.add_argument("--lm-path", default=None,
                    help="ARPA or binary n-gram LM for beam shallow fusion")
@@ -117,15 +119,15 @@ def apply_runtime_overrides(model_cfg: ModelConfig, args) -> ModelConfig:
 
 
 def build_decoder(args, alphabet: Alphabet):
+    kw = dict(lm_path=args.lm_path, alpha=args.alpha, beta=args.beta,
+              beam_width=args.beam_width, cutoff_top_n=args.cutoff_top_n,
+              cutoff_prob=args.cutoff_prob)
     if args.decoder == "beam":
-        return BeamCTCDecoder(alphabet, lm_path=args.lm_path, alpha=args.alpha,
-                              beta=args.beta, beam_width=args.beam_width,
-                              cutoff_top_n=args.cutoff_top_n,
-                              cutoff_prob=args.cutoff_prob)
+        return BeamCTCDecoder(alphabet, **kw)
     if args.decoder == "beam-native":
-        raise NotImplementedError(
-            "--decoder beam-native is not yet ported (ROADMAP.md: the C++ "
-            "host beam, decode/native.py); use --decoder beam or beam-device")
+        from tpuasr_torch.decode.native import NativeBeamDecoder
+
+        return NativeBeamDecoder(alphabet, num_processes=args.lm_workers, **kw)
     if args.decoder == "beam-device":
         lm = load_lm(args.lm_path) if args.lm_path else None
         level = getattr(args, "device_lm_level", "word")

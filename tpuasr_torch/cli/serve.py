@@ -3,7 +3,7 @@
 Usage:
   python -m tpuasr_torch.cli.serve --model-path model.ckpt --port 8080 \
       [--max-batch 32 --batch-window-ms 10] [--device cuda|cpu] \
-      [--decoder greedy|beam|beam-device --lm-path lm.arpa]
+      [--decoder greedy|beam|beam-native|beam-device --lm-path lm.arpa]
 
   curl -X POST --data-binary @utt.wav http://host:8080/transcribe
   -> {"text": "...", "offsets": [...]}
@@ -67,9 +67,9 @@ def main(argv=None) -> int:
     p.add_argument("--stream-beam-impl", default="auto",
                    choices=["auto", "host", "native", "device"],
                    help="live-stream beam engine: device = K3 carrying each "
-                   "session's beam state across ticks on the GPU; host = the "
-                   "host beam; auto = device on a GPU, host on the CPU; "
-                   "native is not ported")
+                   "session's beam state across ticks on the GPU; native = one "
+                   "C++ beam session per stream; host = the Python host beam; "
+                   "auto = device on a GPU, native on the CPU")
     add_decoder_args(p)
     add_runtime_args(p)
     args = p.parse_args(argv)

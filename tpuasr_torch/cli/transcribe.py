@@ -3,10 +3,10 @@
 Usage:
   python -m tpuasr_torch.cli.transcribe --model-path m.ckpt \
       --audio-path x.wav [--offsets] [--device cuda|cpu] \
-      [--decoder beam-device --lm-path lm.arpa --n-best 3]
+      [--decoder beam-device|beam-native --lm-path lm.arpa --n-best 3]
   python -m tpuasr_torch.cli.transcribe --model-path uni.ckpt \
       --audio-path x.wav --streaming [--chunk-frames 32] \
-      [--decoder beam --lm-path lm.arpa --beam-impl auto|host|device]
+      [--decoder beam --lm-path lm.arpa --beam-impl auto|host|native|device]
 
 Audio past the bucket ladder decodes long-form (overlapping chunks, host
 decode: the host beam for every beam decoder), printing the best text.
@@ -63,9 +63,9 @@ def main(argv=None) -> int:
     p.add_argument("--beam-impl", default="auto",
                    choices=["auto", "host", "native", "device"],
                    help="streaming beam engine: K3 carrying the beam state "
-                   "across chunks on the device (device), the host beam "
-                   "(host), device on a GPU and host on the CPU (auto); "
-                   "native is not ported")
+                   "across chunks on the device (device), one C++ beam session "
+                   "per stream (native), the Python host beam (host), device "
+                   "on a GPU and native on the CPU (auto)")
     p.add_argument("--stream-norm-stats", default=None, metavar="MANIFEST",
                    help="streaming: prime the causal normalization with "
                    "corpus statistics of this manifest")

@@ -92,7 +92,8 @@ def beam_step(beams: dict, lp: np.ndarray, alphabet: Alphabet,
     n_class = lp.shape[0]
     # candidate chars: top-n / cumulative cutoff pruning (ctcdecode's
     # cutoff_top_n / cutoff_prob)
-    order = np.argsort(-lp)
+    # ties rank by class id (the C++ search's rule; bf16 logits tie often)
+    order = np.argsort(-lp, kind="stable")
     if cutoff_prob < 1.0:
         cum = np.cumsum(np.exp(lp[order]))
         keep = int(np.searchsorted(cum, cutoff_prob) + 1)
@@ -158,10 +159,11 @@ def beam_step(beams: dict, lp: np.ndarray, alphabet: Alphabet,
         else:
             e[4] = sf if sf is not None else ()
 
-    # keep top beams by ctc + lm score
+    # keep top beams by ctc + lm score; equal scores rank by prefix, as
+    # in the C++ search, so both keep the same beams on exact ties
     scored = sorted(
         nxt.items(),
-        key=lambda kv: -(_lse(kv[1][0], kv[1][1]) + kv[1][2]),
+        key=lambda kv: (-(_lse(kv[1][0], kv[1][1]) + kv[1][2]), kv[0]),
     )
     return dict(scored[:beam_width])
 
@@ -175,7 +177,7 @@ def beam_results(beams: dict, alphabet: Alphabet,
     or (text, score, frames) with ``with_offsets`` (each char's
     emission frame, ctcdecode's "timesteps")."""
     space = alphabet.space_id
-    results = []
+    ranked = []
     for prefix, (pb, pnb, lms, nw, frames) in beams.items():
         total = _lse(pb, pnb) + lms
         if lm is not None:
@@ -183,13 +185,11 @@ def beam_results(beams: dict, alphabet: Alphabet,
             if word:
                 ctx = _context(prefix + (space,), alphabet, space)
                 total += alpha * LN10 * lm.score_word(ctx, word) + beta
-        if with_offsets:
-            results.append((alphabet.decode(prefix), total,
-                            np.asarray(frames, np.int64)))
-        else:
-            results.append((alphabet.decode(prefix), total))
-    results.sort(key=lambda x: -x[1])
-    return results
+        ranked.append((-total, prefix, frames))
+    ranked.sort(key=lambda r: r[:2])  # equal totals by prefix, as in the C++ search
+    if with_offsets:
+        return [(alphabet.decode(p), -neg, np.asarray(f, np.int64)) for neg, p, f in ranked]
+    return [(alphabet.decode(p), -neg) for neg, p, _ in ranked]
 
 
 def _last_word(prefix: tuple, alphabet: Alphabet, space: int) -> str:
@@ -211,9 +211,15 @@ def _context(prefix: tuple, alphabet: Alphabet, space: int) -> tuple:
 
 def _log_softmax(logits) -> np.ndarray:
     """(B, T, C) logits (tensor on any device, or array) -> host f32
-    log-probabilities."""
-    lg = torch.as_tensor(logits).float()
-    return torch.log_softmax(lg, dim=-1).cpu().numpy()
+    log-probabilities, computed on the host, so that logits on a card
+    decode as they do on the CPU."""
+    lg = torch.as_tensor(logits).detach().to("cpu", torch.float32)
+    return torch.log_softmax(lg, dim=-1).numpy()
+
+
+def _host_lengths(lengths) -> np.ndarray:
+    """(B,) lengths (a tensor on any device, or an array) on the host."""
+    return torch.as_tensor(lengths).cpu().numpy()
 
 
 class BeamCTCDecoder:
@@ -243,7 +249,7 @@ class BeamCTCDecoder:
 
     def decode(self, logits, lengths, return_offsets: bool = False):
         logprobs = _log_softmax(logits)
-        lengths = np.asarray(lengths)
+        lengths = _host_lengths(lengths)
         texts, offsets = [], []
         for b in range(logprobs.shape[0]):
             beams = beam_init()
@@ -272,7 +278,7 @@ class BeamCTCDecoder:
         device decoders' decode_nbest)."""
         n = n_best or self.beam_width
         logprobs = _log_softmax(logits)
-        lengths = np.asarray(lengths)
+        lengths = _host_lengths(lengths)
         results = []
         for b in range(logprobs.shape[0]):
             beams = beam_init()

@@ -20,6 +20,7 @@ from tpuasr_torch.data.buckets import BucketSpec
 from tpuasr_torch.decode.beam import DeviceBeamDecoder
 from tpuasr_torch.decode.beam_host import BeamCTCDecoder, beam_init, beam_results, beam_step
 from tpuasr_torch.decode.greedy import GreedyDecoder
+from tpuasr_torch.decode.native import NativeBeamDecoder
 from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import CONV_SPECS
 
@@ -167,12 +168,17 @@ def _host_beam_with_offsets(logprobs: np.ndarray, alphabet: Alphabet,
 def host_decode(decoder, logits: np.ndarray, alphabet: Alphabet):
     """Decode assembled long-form logits (T, C) with the host analogue
     of the configured decoder. Returns (text, per-char frame offsets)
-    for greedy and every beam decoder: the device beam's long-form
+    for greedy and every beam decoder: the native decoder decodes the
+    assembled rows as one utterance, and the device beam's long-form
     analogue is the host beam it is tested against."""
     if decoder is None or isinstance(decoder, GreedyDecoder):
         return greedy_decode_host(logits, alphabet)
 
     logprobs = _log_softmax_np(logits.astype(np.float64)).astype(np.float32)
+    if isinstance(decoder, NativeBeamDecoder):
+        texts, offs = decoder.decode(logprobs[None], np.array([len(logprobs)], np.int32),
+                                     return_offsets=True)
+        return texts[0], offs[0]
     if isinstance(decoder, BeamCTCDecoder):
         return _host_beam_with_offsets(
             logprobs, alphabet, beam_width=decoder.beam_width,

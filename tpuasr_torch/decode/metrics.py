@@ -1,27 +1,50 @@
 """WER / CER (port of ``tpuasr/decode/metrics.py``): Levenshtein
 distance over words / characters, and the reference's aggregate (sum
-of distances over sum of reference lengths, x100). The distance is the
-JAX package's vectorised numpy row recurrence; its native library is
-not loaded.
+of distances over sum of reference lengths, x100).
+
+The distance runs in the port's C++ library (``tpuasr_edit_distance``
+in ``decode/csrc/ctc_beam.cpp``, built at first use by
+``decode/native.py``), as the JAX package runs its native one. Where
+that library cannot be built (no host compiler), it falls back, as the
+JAX package does, to the vectorised numpy row recurrence
+(``_lev_numpy``), its plain version. Both are host arithmetic on
+integers and give the same distances; neither is a device kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
+_native_dist = None
 
-def _lev_dp(a, b) -> int:
-    if len(a) < len(b):
-        a, b = b, a
-    if len(b) == 0:
-        return len(a)
+
+def _load_native():
+    """The native distance function, or False where the library does not
+    build or load (then the numpy recurrence runs)."""
+    global _native_dist
+    if _native_dist is None:
+        try:
+            from tpuasr_torch.decode.native import _load_lib
+
+            _native_dist = _load_lib().tpuasr_edit_distance
+        except (OSError, RuntimeError):
+            _native_dist = False
+    return _native_dist
+
+
+def _ids(a, b) -> tuple[np.ndarray, np.ndarray]:
+    """Tokens -> int32 codes: chars by codepoint, words interned per pair."""
     if isinstance(a, str):
-        ai = np.array([ord(c) for c in a], np.int64)
-        bi = np.array([ord(c) for c in b], np.int64)
-    else:  # word lists: intern tokens to ids
-        vocab: dict = {}
-        ai = np.array([vocab.setdefault(t, len(vocab)) for t in a], np.int64)
-        bi = np.array([vocab.setdefault(t, len(vocab)) for t in b], np.int64)
+        return (np.array([ord(c) for c in a], np.int32),
+                np.array([ord(c) for c in b], np.int32))
+    vocab: dict = {}
+    return (np.array([vocab.setdefault(t, len(vocab)) for t in a], np.int32),
+            np.array([vocab.setdefault(t, len(vocab)) for t in b], np.int32))
+
+
+def _lev_numpy(ai: np.ndarray, bi: np.ndarray) -> int:
     ar = np.arange(len(bi) + 1, dtype=np.int64)
     prev = ar.copy()
     c = np.empty(len(bi) + 1, dtype=np.int64)
@@ -32,6 +55,19 @@ def _lev_dp(a, b) -> int:
         # cur[j] = min_{k<=j} (c[k] + j - k): one accumulate pass
         prev = np.minimum.accumulate(c - ar) + ar
     return int(prev[-1])
+
+
+def _lev_dp(a, b) -> int:
+    if len(a) < len(b):
+        a, b = b, a
+    if len(b) == 0:
+        return len(a)
+    ai, bi = _ids(a, b)
+    fn = _load_native()
+    if fn:
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        return int(fn(ai.ctypes.data_as(i32p), len(ai), bi.ctypes.data_as(i32p), len(bi)))
+    return _lev_numpy(ai, bi)
 
 
 def levenshtein(a, b) -> int:

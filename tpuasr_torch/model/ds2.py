@@ -201,8 +201,13 @@ class MaskedConvBlock(nn.Module):
         (bn_mask_mode="reference"); ``lengths`` drives the returned
         length propagation."""
         kt, _, st, sf, pt, pf = self.spec
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     stride=(st, sf), padding=(pt, pf))
+        x = x.permute(0, 3, 1, 2)
+        if x.device.type == "cpu":
+            # on the CPU, the weight gradient of a channels-last input (the
+            # permuted view) takes ~150x as long as a contiguous one's
+            # (32 channels, B=2, T=600: 221 s against 1.4 s on one thread)
+            x = x.contiguous()
+        y = F.conv2d(x, self.weight.to(x.dtype), stride=(st, sf), padding=(pt, pf))
         x = y.permute(0, 2, 3, 1)  # back to (B, T, F, C)
         out_lengths = (lengths + 2 * pt - kt) // st + 1
         ml = out_lengths if mask_lengths is None else (

@@ -36,11 +36,14 @@ Beam engines (``beam_impl``): ``"device"`` carries each stream's beam
 state across chunks on the device in K3's stateful mode
 (``decode.device_stream.DeviceBeamStreams``): a tick queues the acoustic
 step and K3's advance back to back, and the host reads back the
-backpointers and scores in one copy; ``"host"`` runs
-``decode.beam_host.beam_step`` over the read-back logits; ``"auto"`` is
-``"device"`` on a CUDA device and ``"host"`` on the CPU. A device engine
-that cannot build or launch K3 raises; nothing falls back quietly.
-``"native"`` (the C++ host beam) raises until it is ported.
+backpointers and scores in one copy; ``"native"`` feeds the read-back
+rows to one C++ beam session per stream (``decode.native
+.NativeBeamSession``, kept across ``reset`` and slot reuse); ``"host"``
+runs ``decode.beam_host.beam_step`` over them. ``"auto"`` follows the
+JAX package's order (device, then native, then host): ``"device"`` on a
+CUDA device and ``"native"`` on the CPU. An engine that cannot be built
+(K3, or the C++ library) raises; nothing falls back quietly, where the
+JAX package falls back to the next engine.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch.nn.functional as F
 
 from tpuasr_torch.audio.frontend import FrontendConfig, _device_consts
 from tpuasr_torch.compat.weights import model_from_variables
+from tpuasr_torch.decode.native import NativeBeamSession
 from tpuasr_torch.device import resolve_device, to_device
 from tpuasr_torch.model.ds2 import CONV_SPECS, DeepSpeech2, ModelConfig
 
@@ -193,17 +197,33 @@ def _beam_final(beams, committed_text: str, alphabet, beam_kw: dict):
     return final, final, frames
 
 
+def _native_emit(session, committed: tuple, rows: np.ndarray, lo: int, hi: int,
+                 alphabet):
+    """Advance a NativeBeamSession over finalized logit rows [lo, hi) and
+    emit the newly stable text (``_beam_emit``'s contract; the session
+    counts frames from the first row it was fed, which is conv frame 0,
+    since a stream feeds its rows contiguously from there)."""
+    r = rows[lo:hi].astype(np.float64)  # normalised in f64 as the host
+    m = r.max(axis=-1, keepdims=True)  # beam does; feed casts to f32
+    session.feed(r - m - np.log(np.sum(np.exp(r - m), axis=-1, keepdims=True)))
+    lcp_ids, lcp_frames = session.prefix_with_frames()
+    lcp = tuple(int(x) for x in lcp_ids)
+    frag = ""
+    offs: list[int] = []
+    if len(lcp) > len(committed) and lcp[:len(committed)] == committed:
+        frag = alphabet.decode(list(lcp[len(committed):]))
+        offs = [int(x) for x in lcp_frames[len(committed):]]
+        committed = lcp
+    return frag, committed, offs
+
+
 def _resolve_beam_impl(decoder: str, beam_impl: str, device: torch.device) -> str:
     if beam_impl not in BEAM_IMPLS:
         raise ValueError(f"beam_impl must be auto|host|native|device, got {beam_impl!r}")
     if decoder != "beam":
         return "none"
-    if beam_impl == "native":
-        raise NotImplementedError(
-            "beam_impl='native' is not yet ported (ROADMAP.md §1.5: the C++ host "
-            "beam, decode/native.py); use 'device' or 'host'")
     if beam_impl == "auto":
-        return "device" if device.type == "cuda" else "host"
+        return "device" if device.type == "cuda" else "native"
     return beam_impl
 
 
@@ -518,6 +538,8 @@ class StreamingTranscriber:
         self._dev_engine = (_device_engine(alphabet, self._beam_kw, 1, self._delta,
                                            self.device)
                             if self.beam_impl == "device" else None)
+        self._native = (NativeBeamSession(alphabet, **self._beam_kw)
+                        if self.beam_impl == "native" else None)
         self.reset()
 
     # ---- state management -------------------------------------------------
@@ -540,6 +562,8 @@ class StreamingTranscriber:
             self._beams = None
             if self._dev_engine is not None:
                 self._dev_engine.reset_slot(0)
+            elif self._native is not None:
+                self._native.reset()  # the C++ session is reused
             else:
                 from tpuasr_torch.decode.beam_host import beam_init
 
@@ -600,8 +624,9 @@ class StreamingTranscriber:
         extra = ""
         if self.decoder == "beam":
             committed = "".join(self._text_parts)  # includes the drained text
-            if self._dev_engine is not None:
-                ids, frames, _ = self._dev_engine.finalize(0)
+            if self._dev_engine is not None or self._native is not None:
+                ids, frames, _ = (self._dev_engine.finalize(0) if self._native is None
+                                  else self._native.best_with_frames())
                 final = self.alphabet.decode([int(x) for x in ids])
                 extra = final[len(committed):] if final.startswith(committed) else final
             else:
@@ -654,7 +679,10 @@ class StreamingTranscriber:
             else:
                 rows = logits[0].cpu().numpy()
                 self._carry = carry1
-                if self.decoder == "beam" and hi > lo:
+                if self._native is not None and hi > lo:
+                    frag0, self._committed, offs = _native_emit(
+                        self._native, self._committed, rows, lo, hi, self.alphabet)
+                elif self.decoder == "beam" and hi > lo:
                     frag0, self._beams, self._committed, offs = _beam_emit(
                         self._beams, self._committed, rows, lo, hi, self.alphabet,
                         self._beam_kw, base_w=base_w)
@@ -689,7 +717,7 @@ class _StreamSlot:
 
     __slots__ = ("pending", "lead", "recent", "n_samples", "k", "last_id",
                  "parts", "fresh", "emitted", "draining", "t_f", "t1",
-                 "closed", "beams", "committed", "offsets")
+                 "closed", "beams", "native", "committed", "offsets")
 
     def __init__(self):
         self.pending = np.zeros((0,), np.float32)
@@ -706,6 +734,7 @@ class _StreamSlot:
         self.t1 = 0
         self.closed = False
         self.beams = None  # beam mode, host engine: the live beam dict
+        self.native = None  # beam mode, native engine: the slot's C++ session
         self.committed: tuple = ()  # beam mode: the stable emitted prefix
         self.offsets: list[int] = []  # per-char conv-frame offsets
 
@@ -764,6 +793,10 @@ class MultiStreamTranscriber:
         self._dev_engine = (_device_engine(alphabet, self._beam_kw, max_streams,
                                            self._delta, self.device)
                             if self.beam_impl == "device" else None)
+        # one C++ session per slot, reset when a stream opens on it
+        self._natives = ([NativeBeamSession(alphabet, **self._beam_kw)
+                          for _ in range(max_streams)]
+                         if self.beam_impl == "native" else None)
         self._lahead = max(model_cfg.lookahead_context - 1, 0)
         self._init0 = _init_carry(model_cfg, frontend_cfg, max_streams, self.device,
                                   prime_stats)
@@ -784,6 +817,9 @@ class MultiStreamTranscriber:
                 if self.decoder == "beam":
                     if self._dev_engine is not None:
                         self._dev_engine.reset_slot(i)
+                    elif self._natives is not None:
+                        slot.native = self._natives[i]
+                        slot.native.reset()
                     else:
                         from tpuasr_torch.decode.beam_host import beam_init
 
@@ -886,6 +922,9 @@ class MultiStreamTranscriber:
                 frag = self.alphabet.decode(ids) if ids else ""
                 s.committed = s.committed + tuple(ids)
                 offs = [int(f) for f in frames]
+            elif s.native is not None:
+                frag, s.committed, offs = _native_emit(s.native, s.committed, rows_all[i],
+                                                       lo, hi, self.alphabet)
             elif self.decoder == "beam":
                 frag, s.beams, s.committed, offs = _beam_emit(
                     s.beams, s.committed, rows_all[i], lo, hi, self.alphabet,
@@ -966,8 +1005,9 @@ class MultiStreamTranscriber:
         ``before`` (the full text on a beam retraction)."""
         if self.decoder == "beam":
             committed_text = "".join(s.parts)
-            if self._dev_engine is not None:
-                ids, frames, _ = self._dev_engine.finalize(sid)
+            if self._dev_engine is not None or s.native is not None:
+                ids, frames, _ = (self._dev_engine.finalize(sid) if s.native is None
+                                  else s.native.best_with_frames())
                 final = self.alphabet.decode([int(x) for x in ids])
                 extra = (final[len(committed_text):]
                          if final.startswith(committed_text) else final)
