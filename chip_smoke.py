@@ -2,8 +2,8 @@
 """GPU smoke run of tpuasr_torch: the training, beam-search evaluation
 and batch serving paths on one card, for the BiGRU flagship and for its
 BiLSTM and gate-major BiGRU variants, the unidirectional flagship's
-training, serving and live streaming, and reference ``.pth`` packages
-and the C++ host beam.
+training, serving and live streaming, reference ``.pth`` packages and
+the C++ host beam, and data- and tensor-parallel training on two ranks.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -12,7 +12,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 (``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]`` only times the
 device-beam path from a work directory a full run left: time_beam_path.
 ``python3 chip_smoke.py --stream-only`` runs phase 10 alone, on a corpus
-and word LM of its own, and prints no result line.)
+and word LM of its own, and prints no result line; ``--dist-only`` does
+the same for phase 13. ``--dist-worker SPEC --rank R --world-size N
+--dist-url URL`` is one rank of phase 13, which starts its ranks through
+tpuasr_torch.cli.multiproc.)
 
 Phases, one JSON line each; any failure raises and the run exits
 non-zero without printing a result:
@@ -193,9 +196,33 @@ non-zero without printing a result:
                engine's text and offsets, and cli.transcribe --streaming
                --decoder beam --beam-impl native on the unidirectional
                checkpoint. The phase prints its wall time.
- 12. a {"kernels": [...]} line (all nine kernels, launches by path, the
-     RNN kernels' D=1 times beside them), then the nvidia-smi line, then
-     the last line {"ok": true, "device": {...}}.
+ 13. distributed — slice 12's paths on the full-width flagship (5 x
+               BiGRU-800, bf16, f32 parameters) and phase 4's first 32 x
+               5 s batch. First K5f and K5b with one direction (B=32,
+               T'=251, bf16) against bigru2_reference and its backward
+               with the D=2 tolerances, timed. Then one NCCL rank (world
+               1, in this process) runs the data-parallel step through
+               NCCL's collectives; then two ranks (``--dist-worker``
+               processes under cli.multiproc: gloo on one card, NCCL
+               across two) run, each rank counting its own launches:
+               data parallelism (16 rows a rank), direction TP for the
+               GRU (K1 at D=1), the LSTM (K4 at D=1) and the gate-major
+               GRU (K5 at D=1), and gate-axis TP (tp 2) of the
+               unidirectional flagship. Rank 0 holds each step to the
+               single-process step on the same 32 rows
+               (train_step_parity's bounds on the loss, grad_norm and
+               every parameter's update and running statistic's move),
+               the ranks' whole states (sharded leaves gathered) must
+               hash alike, and each path must launch its kernels and no
+               other RNN kernel. Then tpuasr_torch.cli.multiproc ->
+               cli.train --world-size 2 (16 rows a rank) for one epoch
+               and cli.test --decoder greedy on rank 0's checkpoint. Step
+               times of two ranks on one card are the shared card's, not
+               a speed-up.
+ 14. a {"kernels": [...]} line (all nine kernels, launches by path and
+     by rank on the distributed paths, the RNN kernels' D=1 times beside
+     them), then the nvidia-smi line, then the last line {"ok": true,
+     "device": {...}}.
 
 Which kernel runs the time loop (tpuasr_torch/model/ds2.py): a GRU
 runs K1 under rnn_impl scan and pallas and K5 under pallas2; an LSTM
@@ -256,6 +283,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -842,6 +870,16 @@ def phase_kernel_lstm(device="cuda", cases=lstm_cases(NEW_RNN_CASES + BWD_EDGE_C
              "bilstm_bwd": first["dhg"]["max_abs_err"]}, timings)
 
 
+def gate_major(xg, w_h, b_h):
+    """K1's (T, D, B, 3H) / (D, H, 3H) / (D, 3H) inputs relaid out as
+    K5's gate-major (T, D, 3, B, H) / (D, 3, H, H) / (D, 3, H)."""
+    t, nd, b, g3 = xg.shape
+    h = g3 // 3
+    return (xg.reshape(t, nd, b, 3, h).permute(0, 1, 3, 2, 4).contiguous(),
+            w_h.reshape(nd, h, 3, h).permute(0, 2, 1, 3).contiguous(),
+            b_h.reshape(nd, 3, h).contiguous())
+
+
 def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES + FWD_EDGE_CASES,
                       timing_shapes=TIMING_SHAPES):
     """K5f and K5b against their plain loops, against K1f and K1b on the
@@ -858,13 +896,6 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES + FWD_
         bigru2_forward,
         bigru2_reference,
     )
-
-    def gate_major(xg, w_h, b_h):
-        t, nd, b, g3 = xg.shape
-        h = g3 // 3
-        return (xg.reshape(t, nd, b, 3, h).permute(0, 1, 3, 2, 4).contiguous(),
-                w_h.reshape(nd, h, 3, h).permute(0, 2, 1, 3).contiguous(),
-                b_h.reshape(nd, 3, h).contiguous())
 
     cuda = torch.device(device)
     rows = []
@@ -3481,6 +3512,345 @@ def phase_compat_native(smi: str, ckpts: dict, paths, lm_path: str, device_utt_s
             "test_beam_native": decode["k1f_launches"]}
 
 
+# ------------------------------------------------------------- distributed
+
+# The distributed paths of phase 13: (name, ModelConfig fields beside the
+# flagship's, tp, direction_tp), each on two ranks.
+DIST_CASES = (
+    ("train_dp", {}, 1, False),
+    ("train_tp_gru", {}, 2, True),
+    ("train_tp_lstm", {"rnn_type": "lstm"}, 2, True),
+    ("train_tp_gru2", {"rnn_impl": "pallas2"}, 2, True),
+    ("train_tp_gate", {"bidirectional": False, "lookahead_context": 20}, 2, False),
+)
+# the recurrent kernels a path launches (K2a and K2b besides)
+DIST_KERNELS = {"train_dp": ("bigru_forward", "bigru_backward"),
+                "train_dp_nccl1": ("bigru_forward", "bigru_backward"),
+                "train_tp_gru": ("bigru_forward", "bigru_backward"),
+                "train_tp_lstm": ("bilstm_forward", "bilstm_backward"),
+                "train_tp_gru2": ("bigru2_forward", "bigru2_backward"),
+                "train_tp_gate": ("bigru_forward", "bigru_backward")}
+DIST_LR = 3e-4
+DIST_TIMED_STEPS = 3
+
+
+def kernel_counters() -> dict:
+    """{wrapper name: wrapper} of every kernel a training path launches."""
+    import tpuasr_torch.ops.ctc as ctc_mod
+
+    fns = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
+    return {fn.__name__: fn for fn in fns + [ctc_mod.ctc_alpha, ctc_mod.ctc_beta]}
+
+
+def dist_config(flags: dict, width):
+    """The flagship's ModelConfig (bf16, f32 parameters) at ``width``
+    (hidden size, layers) with ``flags``."""
+    from tpuasr_torch.labels import Alphabet
+    from tpuasr_torch.model.ds2 import ModelConfig
+
+    return ModelConfig(n_classes=Alphabet().size, hidden_size=int(width[0]),
+                       hidden_layers=int(width[1]), **flags)
+
+
+def load_batch(path) -> list:
+    z = np.load(path)
+    return [z[k] for k in ("waves", "wave_lengths", "labels", "label_lengths", "valid")]
+
+
+def dist_case(path: str, cfg, variables, fields, mesh, direction_tp: bool, device: str,
+              reference: bool) -> dict:
+    """One distributed train step of ``path`` on this rank of ``mesh``: the
+    rank's model and step from ``train.loop.rank_train_step``, this
+    rank's rows of ``fields`` (the global batch), the kernels' launch
+    counts of that step alone (zeroed just before, read just after),
+    then DIST_TIMED_STEPS more steps timed by the host clock. With
+    ``reference`` the single-process step on all the rows runs first, on
+    a model of its own, and the distributed step's loss and grad_norm,
+    each parameter's update and each running statistic's move are held
+    to it (train_step_parity's bounds: loss rel <= 1e-2, relative norm
+    errors <= 5e-2; grad_norm rel <= 1e-2, where sound runs read up to
+    4.2e-4: under clipping a gradient scaled evenly leaves the update
+    as it was, and only grad_norm shows it). Every rank returns the
+    sha256 of its whole state (sharded leaves gathered), which the
+    caller compares across ranks."""
+    import hashlib
+
+    import torch
+
+    from tpuasr_torch.audio.frontend import FrontendConfig
+    from tpuasr_torch.compat.weights import from_jax_variables
+    from tpuasr_torch.train.loop import rank_train_step
+    from tpuasr_torch.train.mesh import Mesh, whole_state
+    from tpuasr_torch.train.step import TrainConfig
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    dev = torch.device(device)
+    fe, tc = FrontendConfig(), TrainConfig()
+    ref = None
+    if reference:
+        model, step = rank_train_step(variables, cfg, fe, tc, dev, Mesh())
+        m = step(*fields, DIST_LR)
+        ref = ({k: float(v) for k, v in m.items()},
+               {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del model, step
+    model, step = rank_train_step(variables, cfg, fe, tc, dev, mesh, direction_tp)
+    b = len(fields[0]) // mesh.data_size
+    own = [f[mesh.data_index * b:(mesh.data_index + 1) * b] for f in fields]
+    counters = kernel_counters()
+    for fn in counters.values():  # ---- the path starts here
+        fn.launches = 0
+    m = step(*own, DIST_LR)
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}  # ---- and ends here
+    state = whole_state(model, mesh)
+    digest = hashlib.sha256()
+    for k in sorted(state):
+        digest.update(state[k].detach().float().cpu().numpy().tobytes())
+    row = {"path": path, "rank": mesh.rank, "tp": mesh.tp, "direction_tp": direction_tp,
+           "rows": b, "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
+           "sharded_leaves": len(model.sharded), "sha256": digest.hexdigest()}
+    if dev.type == "cuda":
+        used = {*DIST_KERNELS[path], "ctc_alpha", "ctc_beta"}
+        check(all((v > 0) == (k in used) for k, v in launches.items()),
+              f"kernel launches on {path}, rank {mesh.rank}: {launches}")
+    if ref is not None:
+        m_ref, s_ref = ref
+        before = {k: v.to(dev) for k, v in from_jax_variables(variables, cfg).items()}
+        errs = {k: rel_norm_err(state[k] - before[k], s_ref[k] - before[k]) for k in s_ref}
+        worst = max(errs, key=errs.get)
+        got = row["metrics"]
+        row.update(loss_single=m_ref["loss"],
+                   loss_rel_err=abs(got["loss"] - m_ref["loss"]) / abs(m_ref["loss"]),
+                   grad_norm_single=m_ref["grad_norm"],
+                   grad_norm_rel_err=abs(got["grad_norm"] - m_ref["grad_norm"])
+                   / m_ref["grad_norm"],
+                   update_rel_norm_err_max=errs[worst], worst=worst,
+                   update_rel_norm_err_median=float(np.median(list(errs.values()))))
+        check(row["loss_rel_err"] <= 1e-2 and row["grad_norm_rel_err"] <= 1e-2
+              and errs[worst] <= 5e-2,
+              f"{path}: the distributed step against the single-process one: {row}")
+    mesh.any(False)  # every rank here before the timed steps
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(DIST_TIMED_STEPS):
+        step(*own, DIST_LR)
+    sync()
+    row["step_ms"] = (time.perf_counter() - t0) * 1e3 / DIST_TIMED_STEPS
+    del model, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def dist_worker(argv: list) -> None:
+    """One rank of phase_distributed (``--dist-worker SPEC`` and what
+    ``cli.multiproc`` appends: ``--rank R --world-size N --dist-url
+    URL``): joins the group of the spec's backend, runs ``dist_case``
+    for every DIST_CASES path on a make_mesh(N, tp), rank 0 against the
+    single-process step, and writes its rows to <out>/rank<R>.json."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    from tpuasr_torch.compat.weights import init_train_variables
+    from tpuasr_torch.train.mesh import distributed_init, make_mesh
+
+    p = argparse.ArgumentParser()
+    p.add_argument("spec")
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world-size", type=int, required=True)
+    p.add_argument("--dist-url", required=True)
+    args = p.parse_args(argv)
+    spec = json.loads(Path(args.spec).read_text())
+    rank, world, device = args.rank, args.world_size, spec["device"]
+    if device == "cuda":
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    else:  # a CPU rehearsal: the cores shared out between the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    distributed_init(args.dist_url, world, rank, spec["backend"])
+    try:
+        fields = load_batch(spec["batch"])
+        rows, inits = [], {}
+        for path, flags, tp, direction_tp in DIST_CASES:
+            cfg = dist_config(flags, spec["width"])
+            # the weights do not depend on rnn_impl: one draw serves them all
+            key = json.dumps({**cfg.to_dict(), "rnn_impl": None}, sort_keys=True)
+            if key not in inits:
+                inits[key] = init_train_variables(cfg, seed=0)
+            rows.append(dist_case(path, cfg, inits[key], fields, make_mesh(world, tp),
+                                  direction_tp, device, reference=rank == 0))
+        Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def multiproc(world: int, dist_url: str, command: list, log: Path, timeout: float) -> float:
+    """``tpuasr_torch.cli.multiproc --world-size world --dist-url
+    dist_url -- *command`` in a session of its own, the ranks' output
+    and errors to ``log``. It stops every rank when one fails; past
+    ``timeout`` seconds the whole session is killed. Fails the phase
+    with the end of the log unless it exits 0; returns its wall
+    seconds."""
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpuasr_torch.cli.multiproc", "--world-size", str(world),
+             "--dist-url", dist_url, "--", *command], stdout=out, stderr=subprocess.STDOUT,
+            cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = proc.wait()
+    check(rc == 0, f"{' '.join(map(str, command[:4]))} on {world} ranks exited {rc}:\n"
+          + log.read_text()[-4000:])
+    return time.perf_counter() - t0
+
+
+def k5_d1(smi: str, device: str = "cuda", t: int = 251, b: int = 32, h: int = 800) -> dict:
+    """K5f and K5b with one direction (direction TP's gate-major GRU) at
+    the flagship's shape in bf16 against bigru2_reference and its
+    backward (the D=2 tolerances), the whole BiGRU2Function too, then
+    times beside cuDNN's unidirectional nn.GRU and the bounds."""
+    import torch
+
+    from tpuasr_torch.ops.gru import shift_time
+    from tpuasr_torch.ops.gru2 import (
+        BiGRU2Function,
+        bigru2_backward,
+        bigru2_backward_reference,
+        bigru2_forward,
+        bigru2_reference,
+    )
+
+    cuda = torch.device(device)
+    k1 = gru_case(t, b, h, 1, torch.bfloat16, seed=80, device=cuda)
+    args = (*gate_major(*k1[:3]), k1[3])
+    ys = bigru2_forward(*args)
+    row = {"ys": check_fwd("bigru2_fwd D=1", ys, bigru2_reference(*args), "bfloat16")}
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    dy = (0.1 * torch.randn(ys.shape, generator=gen, device=cuda)).to(torch.bfloat16)
+    bwd_args = (*args, shift_time(ys), dy)
+    row["dg"] = check_bwd("bigru2_bwd D=1", bigru2_backward(*bwd_args),
+                          bigru2_backward_reference(*bwd_args), "bfloat16")
+    row["function_rel_norm_err"] = function_vs_plain(BiGRU2Function.apply, *args, dy, "bfloat16")
+    timings = {"bigru2_forward": [fwd_timing(bigru2_forward, bigru2_reference, args, k1[:3],
+                                             t, b, h, 1)],
+               "bigru2_backward": [bwd_timing(bigru2_backward, bigru2_backward_reference,
+                                              bwd_args, k1[:3], t, b, h, 1)]}
+    emit("kernel_d1", kind="gru2", shape=[t, 1, b, h], dtype="bfloat16", **row,
+         fwd_time=timings["bigru2_forward"][0], bwd_time=timings["bigru2_backward"][0],
+         nvidia_smi=smi)
+    return {"max_abs_err": {"bigru2_forward": row["ys"]["max_abs_err"],
+                            "bigru2_backward": row["dg"]["max_abs_err"]}, "timings": timings}
+
+
+def dist_cli(paths, work: Path, backend: str, device: str, width, batch: int) -> dict:
+    """tpuasr_torch.cli.multiproc -> cli.train --world-size 2 for one
+    epoch on phase 4's corpus (``batch`` rows a rank), then
+    tpuasr_torch.cli.test --decoder greedy on rank 0's checkpoint."""
+    from tpuasr_torch.cli import test as test_cli
+
+    out = work / "cli"
+    cmd = [sys.executable, "-m", "tpuasr_torch.cli.train", "--train-manifest", paths["train"],
+           "--val-manifest", paths["val"], "--hidden-size", width[0], "--hidden-layers",
+           width[1], "--batch-size", str(batch), "--epochs", "1", "--checkpoint",
+           "--save-folder", str(out), "--model-path", str(out / "best.ckpt"),
+           "--log-dir", str(out / "log"), "--sync-every", "1", "--dist-backend", backend,
+           "--device", device, "--world-size", "2"]
+    wall_s = multiproc(2, f"file://{work}/rendezvous_cli", cmd, work / "cli.log", timeout=600)
+    steps = [r for r in read_jsonl(out / "log" / "metrics.jsonl") if "train/loss" in r]
+    n_train = len(Path(paths["train"]).read_text().splitlines())
+    check(len(steps) == n_train // (2 * batch), f"{len(steps)} global steps logged by rank 0")
+    for r in steps:
+        check(np.isfinite(r["train/loss"]) and r["train/n_ok"] == 2 * batch, f"step {r}")
+    rc, lines = run_cli(test_cli.main, ["--model-path", str(out / "best.ckpt"),
+                                        "--test-manifest", paths["val"], "--decoder", "greedy",
+                                        "--batch-size", str(2 * batch), "--device", device])
+    summary = parse_summary(lines)
+    check(rc == 0 and "wer" in summary, f"cli.test greedy on rank 0's checkpoint: {lines}")
+    return {"wall_s": wall_s, "steps": len(steps), "losses": [r["train/loss"] for r in steps],
+            "grad_norms": [r["train/grad_norm"] for r in steps],
+            "step_ms": [1e3 * r["train/step_time"] for r in steps], "test_greedy": summary}
+
+
+def phase_distributed(smi: str, name: str, paths, device: str = "cuda", width=("800", "5"),
+                      batch: int = 32) -> dict:
+    """Phase 13: distributed training. K5 at D=1 against its plain loop
+    first; then one NCCL rank (world 1) in this process runs the DP step
+    through NCCL's collectives; then two ranks (gloo on one card, NCCL
+    across two cards) run every DIST_CASES path on phase 4's first batch
+    (``batch`` rows of 5 s: data parallelism on half each, tensor
+    parallelism on all of it), each against the single-process step on
+    the same rows; then cli.multiproc -> cli.train --world-size 2 one
+    epoch, and cli.test greedy on rank 0's checkpoint. ``device`` "cpu"
+    and a small ``width`` only rehearse it (gloo, no kernels)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from tpuasr_torch.compat.weights import init_train_variables
+    from tpuasr_torch.data.buckets import BucketSpec, make_buckets
+    from tpuasr_torch.data.loader import AudioBatchLoader
+    from tpuasr_torch.data.manifest import order_and_prune, read_manifest
+    from tpuasr_torch.labels import Alphabet
+    from tpuasr_torch.train.mesh import distributed_init, make_mesh
+
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    on_card = device == "cuda"
+    k5 = k5_d1(smi) if on_card else None
+    plan = make_buckets(order_and_prune(read_manifest(paths["train"])), batch, BucketSpec())
+    first = next(iter(AudioBatchLoader(plan, Alphabet(), transfer_dtype="int16").epoch(0)))
+    np.savez(work / "batch.npz", waves=first.waves, wave_lengths=first.wave_lengths,
+             labels=first.labels, label_lengths=first.label_lengths, valid=first.valid)
+    fields = load_batch(work / "batch.npz")
+    rows = {}
+    if on_card:  # one NCCL rank: the DP step's collectives through NCCL
+        distributed_init(f"127.0.0.1:{free_port()}", 1, 0, "nccl")
+        try:
+            cfg = dist_config({}, width)
+            rows["train_dp_nccl1"] = [dist_case("train_dp_nccl1", cfg,
+                                                init_train_variables(cfg, seed=0), fields,
+                                                make_mesh(1, 1), False, device, True)]
+        finally:
+            dist.destroy_process_group()
+    n_cards = torch.cuda.device_count() if on_card else 0
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    spec = {"backend": backend, "device": device, "width": list(width),
+            "batch": str(work / "batch.npz"), "out": str(work)}
+    (work / "spec.json").write_text(json.dumps(spec))
+    ranks_s = multiproc(2, f"file://{work}/rendezvous",
+                        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+                         str(work / "spec.json")], work / "ranks.log", timeout=900)
+    by_rank = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    for r0, r1 in zip(*by_rank):
+        check(r0["sha256"] == r1["sha256"],
+              f"{r0['path']}: the ranks' whole states differ after the step")
+        rows[r0["path"]] = [r0, r1]
+    cli = dist_cli(paths, work, backend, device, width, batch // 2)
+    cards = min(n_cards, 2) if backend == "nccl" else min(n_cards, 1)
+    result = {"backend": backend, "ranks": 2, "cards": cards, "nvidia_smi": smi,
+              "timing_note": ("step_ms: each of two ranks sharing one card (gloo, collectives "
+                              "through host memory); not a speed-up" if cards < 2 else
+                              "step_ms: each of two ranks, one card each (NCCL)"),
+              "paths": rows, "ranks_wall_s": ranks_s, "cli": cli,
+              "wall_s": time.perf_counter() - t0}
+    emit("distributed", **result)
+    return {"launches": {p: [r["launches"] for r in rs] for p, rs in rows.items()},
+            "k5_d1": k5, "result": result}
+
+
 def build_all(names) -> None:
     """One nvcc per kernel source and the host compiler for the C++ beam
     search, all started together."""
@@ -3515,6 +3885,10 @@ def kernel_entry(name, replaces, err, timing, launches: dict, **extra):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dist-worker"]:  # SPEC --rank R ...: one rank of phase 13
+        sys.path.insert(0, str(ROOT))
+        dist_worker(sys.argv[2:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3535,6 +3909,15 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_kernel_d1(smi)
         phase_stream(smi, torch.cuda.get_device_name(0), *stream_inputs())
+        emit("wall", seconds=time.perf_counter() - t0)
+        return 0
+    if sys.argv[1:2] == ["--dist-only"]:  # phase 13 alone, on its own corpus
+        smi = nvidia_smi_line()
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+        build_all(["bigru_fwd", "bigru_bwd", "ctc", "bilstm_fwd", "bilstm_bwd",
+                   "bigru2_fwd", "bigru2_bwd"])
+        t0 = time.perf_counter()
+        phase_distributed(smi, torch.cuda.get_device_name(0), stream_inputs()[0])
         emit("wall", seconds=time.perf_counter() - t0)
         return 0
 
@@ -3581,6 +3964,8 @@ def main() -> int:
     # slice 11: .pth export and serving, the C++ host beam batch and streaming
     compat = phase_compat_native(smi, {k: ckpts[k] for k in ("gru", "lstm")}, paths, lm_word,
                                  decode_res["word"]["utt_per_s"], stream["ckpt"])
+    # slice 12: data and tensor parallelism on two ranks, then cli.multiproc
+    dist_res = phase_distributed(smi, name, paths)
     emit("wall", seconds=time.perf_counter() - t_start)
 
     train_launches = train_res["launches"]
@@ -3594,7 +3979,13 @@ def main() -> int:
         the serving and evaluation paths given)."""
         return {"train": train_launches[wrapper], "train_lstm": lstm_train[wrapper],
                 "train_gru2": gru2_train[wrapper], "train_resident": aug["train"][wrapper],
-                "train_uni": stream["train"][wrapper], **serve}
+                "train_uni": stream["train"][wrapper],
+                **{p: sum(r[wrapper] for r in ranks)
+                   for p, ranks in dist_res["launches"].items()}, **serve}
+
+    def by_rank(wrapper):
+        """A wrapper's launch counts on the distributed paths, rank by rank."""
+        return {p: [r[wrapper] for r in ranks] for p, ranks in dist_res["launches"].items()}
 
     def d1_of(wrapper):
         """A recurrent kernel's D=1 checks: max-abs error vs plain and
@@ -3610,18 +4001,22 @@ def main() -> int:
                                              stream_offline_uni=stream["offline"],
                                              serve_pth_gru=compat["serve_pth_gru"],
                                              test_beam_native=compat["test_beam_native"]),
-                     timings=k1f_timings, **d1_of("bigru_forward"), card=smi),
+                     timings=k1f_timings, **d1_of("bigru_forward"),
+                     launches_by_rank=by_rank("bigru_forward"), card=smi),
         kernel_entry("bigru_bwd", "tpuasr/ops/gru.py:100 _bwd_kernel", k1b_row["max_abs_err"],
                      k1b_timings[0], by_path("bigru_backward"), timings=k1b_timings,
-                     **d1_of("bigru_backward"), card=smi),
+                     **d1_of("bigru_backward"),
+                     launches_by_rank=by_rank("bigru_backward"), card=smi),
         kernel_entry("ctc_alpha", "tpuasr/ops/ctc.py:57 _alpha_kernel",
                      ctc_row["alphas_max_abs_err"], ctc_timing["ctc_alpha"][0],
                      by_path("ctc_alpha"), loss_rel_err=ctc_row["loss_rel_err"],
-                     timings=ctc_timing["ctc_alpha"], card=smi),
+                     timings=ctc_timing["ctc_alpha"],
+                     launches_by_rank=by_rank("ctc_alpha"), card=smi),
         kernel_entry("ctc_beta", "tpuasr/ops/ctc.py:83 _beta_kernel",
                      ctc_row["demit_max_abs_err"], ctc_timing["ctc_beta"][0], by_path("ctc_beta"),
                      dlogits_max_abs_err=ctc_row["dlogits_max_abs_err"],
-                     timings=ctc_timing["ctc_beta"], card=smi),
+                     timings=ctc_timing["ctc_beta"],
+                     launches_by_rank=by_rank("ctc_beta"), card=smi),
         kernel_entry("beam", "tpuasr/ops/beam.py:89 _beam_kernel", beam_err,
                      next(r for r in beam_timings if r["mode"] == "word"),
                      {**beam_launches, "test_resident_beam": aug["beam"]["beam_scan"],
@@ -3631,17 +4026,23 @@ def main() -> int:
                      k4_timings["bilstm_fwd"][0],
                      by_path("bilstm_forward", serve_lstm=lstm_serve,
                              serve_pth_lstm=compat["serve_pth_lstm"]),
-                     timings=k4_timings["bilstm_fwd"], **d1_of("bilstm_forward"), card=smi),
+                     timings=k4_timings["bilstm_fwd"], **d1_of("bilstm_forward"),
+                     launches_by_rank=by_rank("bilstm_forward"), card=smi),
         kernel_entry("bilstm_bwd", "tpuasr/ops/lstm.py:94 _bwd_kernel", k4_err["bilstm_bwd"],
                      k4_timings["bilstm_bwd"][0], by_path("bilstm_backward"),
-                     timings=k4_timings["bilstm_bwd"], **d1_of("bilstm_backward"), card=smi),
+                     timings=k4_timings["bilstm_bwd"], **d1_of("bilstm_backward"),
+                     launches_by_rank=by_rank("bilstm_backward"), card=smi),
         kernel_entry("bigru2_fwd", "tpuasr/ops/gru2.py:36 _fwd_kernel", k5_err["bigru2_fwd"],
                      k5_timings["bigru2_fwd"][0],
                      by_path("bigru2_forward", serve_gru2=gru2_serve),
-                     timings=k5_timings["bigru2_fwd"], card=smi),
+                     timings=k5_timings["bigru2_fwd"], launches_by_rank=by_rank("bigru2_forward"),
+                     max_abs_err_d1=dist_res["k5_d1"]["max_abs_err"]["bigru2_forward"],
+                     timings_d1=dist_res["k5_d1"]["timings"]["bigru2_forward"], card=smi),
         kernel_entry("bigru2_bwd", "tpuasr/ops/gru2.py:77 _bwd_kernel", k5_err["bigru2_bwd"],
                      k5_timings["bigru2_bwd"][0], by_path("bigru2_backward"),
-                     timings=k5_timings["bigru2_bwd"], card=smi),
+                     timings=k5_timings["bigru2_bwd"], launches_by_rank=by_rank("bigru2_backward"),
+                     max_abs_err_d1=dist_res["k5_d1"]["max_abs_err"]["bigru2_backward"],
+                     timings_d1=dist_res["k5_d1"]["timings"]["bigru2_backward"], card=smi),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -271,7 +271,8 @@ def test_cli_test_resident_prints_what_the_per_batch_run_prints(
 def test_train_cli_takes_the_ported_flags(corpus, tmp_path, monkeypatch):
     """--speed-perturb (resample), noise, SpecAugment, the resident
     corpus and the profiler (its window moved inside this run), through
-    the CLI; --world-size and --mesh-tp still refuse."""
+    the CLI; a --mesh-tp that does not divide the world and a --rank
+    outside it refuse before any rendezvous."""
     monkeypatch.setattr(loop_mod, "StepProfiler",
                         functools.partial(StepProfiler, start=2, stop=4))
     out = tmp_path / "cli"
@@ -285,8 +286,9 @@ def test_train_cli_takes_the_ported_flags(corpus, tmp_path, monkeypatch):
     steps = _steps(out / "log" / "metrics.jsonl")
     assert len(steps) == 5 and np.isfinite(steps).all()
     assert (out / "trace" / "steps_2-4.pt.trace.json").is_file()
-    for flag in (["--world-size", "2"], ["--mesh-tp", "2"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.6"):
+    for flag, match in ((["--mesh-tp", "2"], r"--mesh-tp 2 does not divide --world-size 1"),
+                        (["--world-size", "2", "--rank", "2"], r"--rank 2 must be in")):
+        with pytest.raises(ValueError, match=match):
             train_cli.main(argv + flag)
 
 

@@ -128,9 +128,11 @@ def test_epoch_without_validation_keeps_the_best_model(corpus, tmp_path):
     assert best.epoch == 2 and np.isnan(best.wer_history[-1])
 
 
-@pytest.mark.parametrize("flag", [["--world-size", "2"], ["--mesh-tp", "2"]])
+@pytest.mark.parametrize("flag", [["--world-size", "2", "--rank", "2"], ["--mesh-tp", "2"]])
 def test_unported_flags_raise(flag, corpus):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """What no (data, model) grid runs raises before any rendezvous: a
+    rank outside the world, a --mesh-tp that does not divide it."""
+    with pytest.raises(ValueError, match=r"--rank 2 must be in|--mesh-tp 2 does not divide"):
         train_cli.main(["--train-manifest", corpus["train"], *flag, "--device", "cpu"])
 
 

@@ -114,26 +114,31 @@ def draw_noise(gen: torch.Generator, b: int, n: int, cfg: AugmentConfig):
 
 
 def draw_spec_augment(gen: torch.Generator, feat_lengths: torch.Tensor, t_max: int,
-                      n_feat: int, cfg: AugmentConfig):
+                      n_feat: int, cfg: AugmentConfig, rows: tuple | None = None):
     """(freq_masks, time_masks): lists of (start, width) pairs of (B,)
     int64 tensors, one pair a mask, drawn as ``tpuasr/audio/augment.py``
     draws them: a frequency mask's width in [0, freq_mask_width], its
     start in [0, max(F - width, 1)); a time mask's width as
     randint(0, T) % (max_w + 1) with max_w = max(int(len *
     time_mask_frac), 1), its start as randint(0, T) % max(len - width,
-    1)."""
+    1). ``rows`` = (first row, total rows): the draws of those B rows of
+    a global batch of ``total`` (each rank of a data group draws for the
+    whole batch and keeps its own rows; ``feat_lengths`` are its own)."""
     b = feat_lengths.shape[0]
+    r0, total = rows or (0, b)
+    own = slice(r0, r0 + b)
     lengths = feat_lengths.to(torch.int64)
     freq, time = [], []
     for _ in range(cfg.n_freq_masks):
-        width = torch.randint(0, cfg.freq_mask_width + 1, (b,), generator=gen,
+        width = torch.randint(0, cfg.freq_mask_width + 1, (total,), generator=gen,
                               device=gen.device)
         start = _randint_below(gen, (n_feat - width).clamp(min=1))
-        freq.append((start, width))
+        freq.append((start[own], width[own]))
     for _ in range(cfg.n_time_masks):
         max_w = (lengths.to(torch.float32) * cfg.time_mask_frac).to(torch.int64).clamp(min=1)
-        width = torch.randint(0, t_max, (b,), generator=gen, device=gen.device) % (max_w + 1)
-        start = (torch.randint(0, t_max, (b,), generator=gen, device=gen.device)
+        width = (torch.randint(0, t_max, (total,), generator=gen, device=gen.device)[own]
+                 % (max_w + 1))
+        start = (torch.randint(0, t_max, (total,), generator=gen, device=gen.device)[own]
                  % (lengths - width).clamp(min=1))
         time.append((start, width))
     return freq, time
@@ -268,7 +273,11 @@ class AugmentFn:
     frontend (tempo or speed with gain, then noise), ``feats`` after it
     (SpecAugment). Each draws from the generator it is given, on the
     batch's device, and is the identity where the config turns it off.
-    The noise bank is copied to a device at its first use there."""
+    The noise bank is copied to a device at its first use there.
+    ``rows`` = (first row, total rows) draws for a global batch of
+    ``total`` rows and applies the draws of rows [first, first + B) (a
+    rank of a data group), so a distributed step augments as the
+    single-process step on the global batch does."""
 
     def __init__(self, cfg: AugmentConfig, sample_rate: int):
         self.cfg = cfg
@@ -286,23 +295,28 @@ class AugmentFn:
             self._banks[device] = self._bank.to(device)
         return self._banks[device]
 
-    def waves(self, gen: torch.Generator, waves: torch.Tensor, lengths: torch.Tensor):
+    def waves(self, gen: torch.Generator, waves: torch.Tensor, lengths: torch.Tensor,
+              rows: tuple | None = None):
         cfg = self.cfg
         b = waves.shape[0]
+        r0, total = rows or (0, b)
         if cfg.tempo_gain:
-            rates, gains_db = draw_tempo_gain(gen, b, cfg)
-            waves, lengths = tempo_and_gain(rates, gains_db, waves, lengths, cfg)
+            rates, gains_db = draw_tempo_gain(gen, total, cfg)
+            waves, lengths = tempo_and_gain(rates[r0:r0 + b], gains_db[r0:r0 + b], waves,
+                                            lengths, cfg)
         bank = self.bank(waves.device)
         if bank is not None:
-            offsets, levels, on = draw_noise(gen, b, bank.shape[0], cfg)
-            waves = inject_noise(offsets, levels, on, waves, lengths, bank)
+            offsets, levels, on = draw_noise(gen, total, bank.shape[0], cfg)
+            waves = inject_noise(offsets[r0:r0 + b], levels[r0:r0 + b], on[r0:r0 + b], waves,
+                                 lengths, bank)
         return waves, lengths
 
-    def feats(self, gen: torch.Generator, feats: torch.Tensor, feat_lengths: torch.Tensor):
+    def feats(self, gen: torch.Generator, feats: torch.Tensor, feat_lengths: torch.Tensor,
+              rows: tuple | None = None):
         if not self.cfg.spec_augment:
             return feats
         freq, time = draw_spec_augment(gen, feat_lengths, feats.shape[1], feats.shape[2],
-                                       self.cfg)
+                                       self.cfg, rows)
         return spec_augment(freq, time, feats)
 
 

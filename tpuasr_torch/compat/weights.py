@@ -113,46 +113,62 @@ def from_jax_variables(variables: dict, cfg: ModelConfig) -> dict:
             for name, path, conv in variable_paths(cfg)}
 
 
-def to_jax_variables(model: DeepSpeech2) -> dict:
+def to_jax_variables(model: DeepSpeech2, state: dict | None = None) -> dict:
     """``DeepSpeech2`` -> flax ``{"params", "batch_stats"}`` tree of f32
-    numpy arrays, the inverse of ``from_jax_variables``."""
-    sd = model.state_dict()
+    numpy arrays, the inverse of ``from_jax_variables``. ``state``
+    overrides entries of the model's state dict (a tensor-parallel
+    model's sharded leaves made whole, ``train.mesh.whole_tensors``)."""
+    sd = {**model.state_dict(), **(state or {})}
     tree: dict = {"params": {}, "batch_stats": {}}
     for name, path, conv in variable_paths(model.config):
         _set(tree, path, _to_numpy(sd[name], conv))
     return tree
 
 
-def momentum_to_opt_state(model: DeepSpeech2, optimizer: torch.optim.Optimizer) -> dict:
+def momentum_buffers(model: DeepSpeech2, optimizer: torch.optim.Optimizer) -> dict:
+    """{parameter name: its SGD momentum buffer}, zeros for a parameter
+    with no buffer yet (no step taken), as optax initialises its trace."""
+    out = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        out[name] = torch.zeros_like(p) if buf is None else buf
+    return out
+
+
+def momentum_to_opt_state(model: DeepSpeech2, optimizer: torch.optim.Optimizer,
+                          buffers: dict | None = None) -> dict:
     """The SGD momentum buffers as optax's state dict of
     ``chain(clip_by_global_norm, trace(nesterov))``: ``{"0": {}, "1":
-    {"trace": <params tree>}}``. A parameter with no buffer yet (no step
-    taken) has a zero trace, as optax initialises it."""
-    params = dict(model.named_parameters())
+    {"trace": <params tree>}}``. ``buffers`` ({name: tensor}) stands in
+    for ``momentum_buffers(model, optimizer)`` (a tensor-parallel
+    model's buffers made whole)."""
+    buffers = buffers if buffers is not None else momentum_buffers(model, optimizer)
     trace: dict = {}
     for name, path, conv in variable_paths(model.config):
         if path[0] != "params":
             continue
-        p = params[name]
-        buf = optimizer.state.get(p, {}).get("momentum_buffer")
-        _set(trace, path[1:], _to_numpy(torch.zeros_like(p) if buf is None else buf, conv))
+        _set(trace, path[1:], _to_numpy(buffers[name], conv))
     return {"0": {}, "1": {"trace": trace}}
 
 
 def load_momentum(model: DeepSpeech2, optimizer: torch.optim.Optimizer,
-                  opt_state: dict) -> None:
+                  opt_state: dict, local=None) -> None:
     """Set the SGD momentum buffers from optax's state dict (the inverse
     of ``momentum_to_opt_state``). torch's first Nesterov step stores
     the gradient as its buffer, which equals optax's trace update from
-    a zero trace, so a zero trace loads as a zero buffer."""
+    a zero trace, so a zero trace loads as a zero buffer. ``local(name,
+    whole)`` cuts a whole buffer to the parameter's shard (a
+    tensor-parallel model)."""
     trace = opt_state["1"]["trace"]
     params = dict(model.named_parameters())
     for name, path, conv in variable_paths(model.config):
         if path[0] != "params":
             continue
         p = params[name]
-        optimizer.state[p]["momentum_buffer"] = _to_torch(
-            _get(trace, path[1:]), conv).to(p.device, p.dtype)
+        buf = _to_torch(_get(trace, path[1:]), conv)
+        if local is not None:
+            buf = local(name, buf)
+        optimizer.state[p]["momentum_buffer"] = buf.to(p.device, p.dtype)
 
 
 def model_from_variables(variables: dict, cfg: ModelConfig,

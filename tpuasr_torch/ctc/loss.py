@@ -14,6 +14,12 @@ gather of the log-softmax, which equals the JAX package's one-hot
 contraction exactly (one non-zero term). ``ctc_loss_autograd`` is the
 scan formulation (``tpuasr/ctc/loss.py:ctc_loss``) as a plain loop
 under torch autograd, an independent oracle for the tests.
+
+Distributed training needs no collective here: the loss and both
+kernels work per utterance, so each rank runs its own rows, which is
+what the JAX package's ``shard_map`` over ``data`` gives each shard
+(``tpuasr/ctc/loss.py:160-175``); ``train.step`` divides by the global
+count of usable utterances.
 """
 
 from __future__ import annotations

@@ -43,17 +43,23 @@ class Batch:
 
 class AudioBatchLoader:
     """Iterates a BucketingPlan epoch, reading and padding on a
-    background thread with ``prefetch`` batches in flight."""
+    background thread with ``prefetch`` batches in flight. ``rank`` and
+    ``world`` pick a data shard: batches [rank::world] of the shared
+    schedule (``BucketingPlan.sharded_batches``); a distributed run
+    passes the data index and data-group size, so the ranks of one model
+    group load the same batches."""
 
     def __init__(self, plan: BucketingPlan, alphabet: Alphabet, sample_rate: int = 16000,
                  prefetch: int = 2, cache_audio: bool = False,
-                 transfer_dtype: str = "float32"):
+                 transfer_dtype: str = "float32", rank: int = 0, world: int = 1):
         if transfer_dtype not in ("float32", "int16"):
             raise ValueError(f"transfer_dtype must be float32|int16, got {transfer_dtype!r}")
         self.plan = plan
         self.alphabet = alphabet
         self.sample_rate = sample_rate
         self.prefetch = prefetch
+        self.rank = rank
+        self.world = world
         self.transfer_dtype = transfer_dtype
         self._wave_cache: dict | None = {} if cache_audio else None
 
@@ -109,8 +115,8 @@ class AudioBatchLoader:
         return Batch(waves, wave_lengths, labels, label_lengths, valid, pb.bucket, texts)
 
     def epoch(self, epoch: int):
-        """Yield the prefetched batches of one epoch."""
-        schedule = self.plan.batches(epoch)
+        """Yield the prefetched batches of one epoch (this rank's shard)."""
+        schedule = self.plan.sharded_batches(epoch, self.rank, self.world)
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, 1))
         stop = object()
 
@@ -132,4 +138,4 @@ class AudioBatchLoader:
             yield item
 
     def num_batches(self, epoch: int) -> int:
-        return len(self.plan.batches(epoch))
+        return len(self.plan.sharded_batches(epoch, self.rank, self.world))

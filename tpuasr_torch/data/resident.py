@@ -125,13 +125,19 @@ class ResidentBatchLoader:
         runners: yields (bucket, bank, idx_mat (K, B) int32, n_valid
         (K,) int32, valid_mat (K, B) bool), host arrays. Within a bucket
         the (shuffled) batch order is kept; buckets are visited shortest
-        first, which keeps the epoch-0 SortaGrad curriculum exact."""
+        first, which keeps the epoch-0 SortaGrad curriculum exact. With
+        several ranks a step is grouped by the buckets of every rank's
+        batch at that step (the same groups on every rank), so the ranks
+        run the same chunks and each step's global batch is the shared
+        schedule's."""
         bsz = self.plan.batch_size
-        by_bucket: dict = {}
-        for pb in self.plan.sharded_batches(epoch, self.rank, self.world):
-            by_bucket.setdefault(pb.bucket, []).append(pb)
-        for b in sorted(by_bucket):
-            bank, pbs = self.banks[b], by_bucket[b]
+        shards = [self.plan.sharded_batches(epoch, r, self.world) for r in range(self.world)]
+        by_buckets: dict = {}
+        for k, pb in enumerate(shards[self.rank]):
+            by_buckets.setdefault(tuple(s[k].bucket for s in shards), []).append(pb)
+        for buckets in sorted(by_buckets):
+            b = buckets[self.rank]
+            bank, pbs = self.banks[b], by_buckets[buckets]
             idx_mat = np.asarray([self._rows(bank, pb.indices) for pb in pbs], np.int32)
             n_valid = np.asarray([len(pb.indices) for pb in pbs], np.int32)
             valid_mat = np.arange(bsz)[None, :] < n_valid[:, None]

@@ -34,6 +34,15 @@ runs ``scan``, and ``lstm`` + ``pallas2``, through ``lax.scan``). A
 unidirectional GRU runs K1 at D=1 under ``pallas2`` too: JAX's
 ``RecurrentCore`` knows only ``pallas``, and K5 is bidirectional only.
 
+Distributed training (``parallel.py``, ``train/mesh.py``, ``set_parallel``):
+with a data group every train-mode BatchNorm takes its statistics over
+the global batch. Under direction TP (tp = 2) a bidirectional layer's
+four recurrent leaves hold this model rank's direction, (1, ...), and
+run the table's kernel at D=1 (direction 1 on the flipped input); the
+two directions' outputs are all-gathered and summed in the same order as
+in one process. Under gate-axis TP the leaves hold this rank's columns
+of the gate axis and are gathered whole before the unchanged kernel.
+
 Layout notes. Activations keep the JAX package's (B, T, F, C) order at
 module boundaries: the convs run in PyTorch's (B, C, T, F) and are
 permuted back before the feature-major ``f * C + c`` flatten, so
@@ -56,6 +65,7 @@ from torch import nn
 from tpuasr_torch.ops.gru import BiGRUFunction, bigru_forward
 from tpuasr_torch.ops.gru2 import BiGRU2Function, bigru2_forward
 from tpuasr_torch.ops.lstm import BiLSTMFunction, bilstm_forward
+from tpuasr_torch.parallel import CopyToModel, GatherColumns, GatherDirections, SumOverGroup
 
 # (kernel_t, kernel_f, stride_t, stride_f, pad_t, pad_f) per conv layer.
 CONV_SPECS = (
@@ -153,11 +163,17 @@ class MaskedBatchNorm(nn.Module):
     Training: the mean and the biased variance over the valid positions
     (denominator max(count, 1); a padding row of length 0 adds nothing),
     and the running statistics move by momentum 0.1 (torch convention)
-    with the unbiased variance. Evaluation: the running statistics."""
+    with the unbiased variance. Evaluation: the running statistics.
+    With a data ``group`` (``parallel.Group``, set by
+    ``DeepSpeech2.set_parallel``) the sums are over the global batch:
+    (sum of x * m, sum of m), then sum of (x - mean)**2 * m, each summed
+    over the group (two differentiable all-reduces), so every rank's
+    statistics and running statistics are the global batch's."""
 
     def __init__(self, c: int, epsilon: float = 1e-5):
         super().__init__()
         self.epsilon = epsilon
+        self.group = None
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -169,10 +185,18 @@ class MaskedBatchNorm(nn.Module):
             mask.shape + (1,) * (x.dim() - mask.dim()))
         xf = x.to(torch.float32)
         if train:
-            denom = m.expand(x.shape[:-1] + (1,)).sum().clamp(min=1.0)
+            count = m.expand(x.shape[:-1] + (1,)).sum()
             axes = tuple(range(x.dim() - 1))
-            mean = (xf * m).sum(dim=axes) / denom
-            var = ((xf - mean) ** 2 * m).sum(dim=axes) / denom
+            s1 = (xf * m).sum(dim=axes)
+            if self.group is not None:
+                both = SumOverGroup.apply(torch.cat([s1, count.reshape(1)]), self.group)
+                s1, count = both[:-1], both[-1]
+            denom = count.clamp(min=1.0)
+            mean = s1 / denom
+            s2 = ((xf - mean) ** 2 * m).sum(dim=axes)
+            if self.group is not None:
+                s2 = SumOverGroup.apply(s2, self.group)
+            var = s2 / denom
             with torch.no_grad():
                 unbiased = var * (denom / (denom - 1.0).clamp(min=1.0))
                 mo = BN_MOMENTUM
@@ -253,10 +277,32 @@ def _loop(rnn_type: str, xg, w_h, b_h, mask):
     return (BiGRUFunction.apply if grad else bigru_forward)(xg, w_h, b_h, mask)  # K1
 
 
-class BiRecurrentCore(nn.Module):
+class _Sharded:
+    """Tensor parallelism of a recurrent core (``DeepSpeech2.set_parallel``):
+    ``tp`` is the model group (None: no TP), ``tp_mode`` "direction"
+    (this rank holds one direction of every leaf, shape (1, ...)) or
+    "gate" (the leaves of ``sharded_leaves`` hold this rank's columns of
+    the gate axis, gathered whole before each use)."""
+
+    tp = None
+    tp_mode = "gate"
+    sharded_leaves: frozenset = frozenset()
+
+    def leaf(self, name: str) -> torch.Tensor:
+        p = getattr(self, name)
+        if self.tp is not None and self.tp_mode == "gate" and name in self.sharded_leaves:
+            return GatherColumns.apply(p, self.tp)
+        return p
+
+
+class BiRecurrentCore(_Sharded, nn.Module):
     """Both directions in one fused time loop (the kernel of the module
     docstring's table: the wrapper, or its autograd function when grad
-    is enabled); direction 1 consumes the time-flipped input."""
+    is enabled); direction 1 consumes the time-flipped input. Under
+    direction TP the rank runs its own direction alone (D=1: direction
+    1 on ``x_flip``) and the two directions' outputs are all-gathered
+    over the model group (``tpuasr/model/ds2.py:357-371``'s shard_map,
+    one direction a shard)."""
 
     def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype,
                  rnn_type: str = "gru", rnn_impl: str = "scan"):
@@ -271,26 +317,38 @@ class BiRecurrentCore(nn.Module):
         self.recurrent_kernel = nn.Parameter(torch.zeros(2, hidden, g))
         self.recurrent_bias = nn.Parameter(torch.zeros(2, g))
 
+    @property
+    def direction_tp(self) -> bool:
+        return self.tp is not None and self.tp_mode == "direction"
+
     def forward(self, x, x_flip, mask_fwd, mask_bwd):
         dt, h = self.dtype, self.hidden
-        xs = torch.stack([x, x_flip], dim=0).to(dt)  # (2, B, T, H_in)
-        mask = torch.stack([mask_fwd, mask_bwd], dim=0)  # (2, B, T)
+        if self.direction_tp:  # this rank's direction, D=1
+            own = self.tp.index
+            xs = (x_flip if own else x).to(dt)[None]  # (1, B, T, H_in)
+            mask = (mask_bwd if own else mask_fwd)[None]  # (1, B, T)
+        else:
+            xs = torch.stack([x, x_flip], dim=0).to(dt)  # (2, B, T, H_in)
+            mask = torch.stack([mask_fwd, mask_bwd], dim=0)  # (2, B, T)
+        nd = xs.shape[0]
+        w_x, b_x = self.leaf("input_kernel"), self.leaf("input_bias")
+        w_h, b_h = self.leaf("recurrent_kernel"), self.leaf("recurrent_bias")
         mask_t = mask.permute(2, 0, 1).to(torch.float32).contiguous()
         if self.gate_major:  # K5: tpuasr/model/ds2.py:436-445
-            w_x = self.input_kernel.to(dt).reshape(2, -1, 3, h)
-            xg = (torch.einsum("dbti,digh->tdgbh", xs, w_x)
-                  + self.input_bias.to(dt).reshape(2, 3, h)[None, :, :, None, :])
-            w_h = self.recurrent_kernel.reshape(2, h, 3, h).permute(0, 2, 1, 3)
+            xg = (torch.einsum("dbti,digh->tdgbh", xs, w_x.to(dt).reshape(nd, -1, 3, h))
+                  + b_x.to(dt).reshape(nd, 3, h)[None, :, :, None, :])
+            w_h = w_h.reshape(nd, h, 3, h).permute(0, 2, 1, 3)
             ys = (BiGRU2Function.apply if torch.is_grad_enabled() else bigru2_forward)(
                 xg.contiguous(), w_h.to(dt).contiguous(),
-                self.recurrent_bias.reshape(2, 3, h).to(torch.float32).contiguous(),
-                mask_t)  # (T, 2, B, H)
+                b_h.reshape(nd, 3, h).to(torch.float32).contiguous(),
+                mask_t)  # (T, D, B, H)
         else:
-            xg = (torch.einsum("dbti,dig->tdbg", xs, self.input_kernel.to(dt))
-                  + self.input_bias.to(dt)[None, :, None, :])  # (T, 2, B, G*H)
-            ys = _loop(self.rnn_type, xg.contiguous(),
-                       self.recurrent_kernel.to(dt).contiguous(), self.recurrent_bias, mask_t)
-        ys = ys.permute(1, 2, 0, 3)  # (2, B, T, H)
+            xg = (torch.einsum("dbti,dig->tdbg", xs, w_x.to(dt))
+                  + b_x.to(dt)[None, :, None, :])  # (T, D, B, G*H)
+            ys = _loop(self.rnn_type, xg.contiguous(), w_h.to(dt).contiguous(), b_h, mask_t)
+        ys = ys.permute(1, 2, 0, 3)  # (D, B, T, H)
+        if self.direction_tp:
+            ys = GatherDirections.apply(ys[0], self.tp)  # (2, B, T, H)
         return ys[0], ys[1]
 
 
@@ -307,12 +365,14 @@ class Dense(nn.Module):
         return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
-class RecurrentCore(nn.Module):
+class RecurrentCore(_Sharded, nn.Module):
     """One direction (``tpuasr/model/ds2.py:238 RecurrentCore``): the
     input projection as one matmul, then the time loop with a singleton
     direction axis (xg (T, 1, B, G*H), w_h (1, H, G*H), mask (T, 1, B)),
     as the JAX package calls its fused kernels (``:281-295``): K1 for a
-    GRU, K4 for an LSTM, the plain loop for the vanilla RNN."""
+    GRU, K4 for an LSTM, the plain loop for the vanilla RNN. Under
+    gate-axis TP the recurrent kernel and bias are gathered whole first
+    (the input projection is replicated)."""
 
     def __init__(self, h_in: int, hidden: int, compute_dtype: torch.dtype,
                  rnn_type: str = "gru"):
@@ -328,7 +388,8 @@ class RecurrentCore(nn.Module):
         dt = self.dtype
         xg = self.input_proj(x, dt)  # (B, T, G*H)
         ys = _loop(self.rnn_type, xg.transpose(0, 1)[:, None].contiguous(),
-                   self.recurrent_kernel.to(dt)[None].contiguous(), self.recurrent_bias[None],
+                   self.leaf("recurrent_kernel").to(dt)[None].contiguous(),
+                   self.leaf("recurrent_bias")[None],
                    mask.t().to(torch.float32)[:, None].contiguous())  # (T, 1, B, H)
         ys = ys[:, 0].transpose(0, 1)  # (B, T, H)
         return ys * mask[:, :, None].to(ys.dtype)
@@ -358,6 +419,8 @@ class BatchRNN(nn.Module):
         t_max = x.shape[1]
         mask_bwd = (torch.arange(t_max, device=x.device)[None, :]
                     >= (t_max - lengths)[:, None])
+        if self.bi.direction_tp:  # each rank's direction sees x in part
+            x = CopyToModel.apply(x, self.bi.tp)
         fwd, bwd_flip = self.bi(x, x.flip(1), mask, mask_bwd)
         out = fwd + bwd_flip.flip(1)  # direction sum, reference behavior
         return out * mask[:, :, None].to(out.dtype)
@@ -408,6 +471,29 @@ class DeepSpeech2(nn.Module):
                           if not cfg.bidirectional and cfg.lookahead_context > 0 else None)
         self.head_bn = MaskedBatchNorm(cfg.hidden_size)
         self.head_kernel = nn.Parameter(torch.zeros(cfg.hidden_size, cfg.n_classes))
+        self.sharded: dict = {}  # parameter name -> shard axis (set_parallel)
+
+    def set_parallel(self, data=None, model=None, tp_mode: str = "gate",
+                     sharded: dict | None = None) -> None:
+        """Give the BatchNorms the data group (global-batch statistics in
+        training) and the recurrent cores the model group with the TP
+        mode and their sharded leaves (``train.mesh.shard_model_`` calls
+        this after slicing the parameters; ``sharded`` maps parameter
+        names to shard axes). None: one rank, no TP."""
+        if tp_mode not in ("direction", "gate"):
+            raise ValueError(f"unknown tp_mode {tp_mode!r}")
+        self.sharded = dict(sharded or {})
+        for name, mod in self.named_modules():
+            if isinstance(mod, MaskedBatchNorm):
+                mod.group = data
+            elif isinstance(mod, _Sharded):
+                leaves = frozenset(k.rsplit(".", 1)[-1] for k in self.sharded
+                                   if k.rsplit(".", 1)[0] == name)
+                if model is not None and tp_mode == "direction" and leaves and \
+                        not isinstance(mod, BiRecurrentCore):
+                    raise ValueError("direction TP needs bidirectional layers")
+                mod.tp = model if leaves else None
+                mod.tp_mode, mod.sharded_leaves = tp_mode, leaves
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
                 train: bool = False):

@@ -18,6 +18,19 @@ with a checkpoint after each; preemption is checked between chunks.
 Validation stays on the per-batch loader. ``profile_dir`` traces global
 steps [10, 15) with ``train.profiling.StepProfiler``.
 
+Distributed (``mesh``, a ``train.mesh.Mesh`` from ``make_mesh``): the
+loaders hold this rank's data shard (data index and data-group size).
+Rank 0's parameters and BatchNorm statistics are broadcast to every
+rank, then the model is put on the mesh (``shard_model_``; parameters
+and momentum sharded by ``param_sharding_specs``) and every step is the
+single-process step on the global batch. Every rank runs every
+validation batch (an unsharded loader, as the JAX package's), so WER and
+CER are the single-process ones. Rank 0 alone writes logs, TensorBoard
+and checkpoints; a checkpoint holds the whole (single-device) layout,
+its sharded leaves gathered first, so it resumes at any world size and
+tp in both packages. A preemption signal stops every rank: the flag is
+all-reduced (MAX, host only) where the loop checks it.
+
 ``model_path`` is written as the JAX package writes it: after a
 validation whose WER is no worse than the best so far, and also after an
 epoch without validation, whose WER is NaN.
@@ -38,6 +51,7 @@ from tpuasr_torch.compat.weights import (
     init_train_variables,
     load_momentum,
     model_from_variables,
+    momentum_buffers,
     momentum_to_opt_state,
     to_jax_variables,
 )
@@ -49,6 +63,14 @@ from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import ModelConfig
 from tpuasr_torch.train.checkpoint import CheckpointPackage, load_checkpoint, save_checkpoint
 from tpuasr_torch.train.logging import AverageMeter, MetricsLogger
+from tpuasr_torch.train.mesh import (
+    Mesh,
+    broadcast_module_,
+    local_shard,
+    shard_model_,
+    whole_state,
+    whole_tensors,
+)
 from tpuasr_torch.train.profiling import StepProfiler
 from tpuasr_torch.train.step import (
     TrainConfig,
@@ -129,20 +151,41 @@ def read_back(metrics: dict) -> dict:
     return dict(zip(metrics, vals))
 
 
+def rank_train_step(variables: dict, model_cfg: ModelConfig, frontend_cfg: FrontendConfig,
+                    train_cfg: TrainConfig, device, mesh: Mesh, direction_tp: bool = False,
+                    augment_fn=None):
+    """This rank's (model, train step): ``variables`` as a trainable model
+    on ``device``, rank 0's parameters and statistics broadcast to every
+    rank, put on ``mesh`` (``shard_model_``; ``model.sharded`` names the
+    sharded leaves), and its step on the global batch, whose inputs are
+    this rank's rows."""
+    model = model_from_variables(variables, model_cfg, device, trainable=True)
+    broadcast_module_(model, mesh)
+    shard_model_(model, mesh, direction_tp)
+    return model, make_train_step(model, frontend_cfg, train_cfg, augment_fn, mesh)
+
+
 def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: TrainConfig,
           loop_cfg: LoopConfig, train_loader: AudioBatchLoader,
           val_loader: AudioBatchLoader | None, alphabet: Alphabet,
           continue_from: str | None = None, finetune: bool = False,
-          device: str | torch.device = "cuda", augment_fn=None) -> CheckpointPackage:
+          device: str | torch.device = "cuda", augment_fn=None, mesh: Mesh | None = None,
+          direction_tp: bool = False) -> CheckpointPackage:
     """Train on ``device`` (CUDA unless the CPU is asked for) and return
     the last checkpoint package. A fresh model is drawn from flax's init
     distributions with ``loop_cfg.seed``; ``continue_from`` adopts the
     checkpoint's model, frontend and alphabet, and unless ``finetune``
     its optimizer state, progress and histories. ``augment_fn`` (an
     ``audio.augment.AugmentFn``) augments every training batch; a
-    ``data.resident.ResidentBatchLoader`` trains a chunk per bucket."""
+    ``data.resident.ResidentBatchLoader`` trains a chunk per bucket.
+    ``mesh`` (every rank calls ``train`` with its own) runs the
+    distributed step; ``direction_tp`` shards the recurrent layers by
+    direction instead of by gate columns (tp = 2, bidirectional)."""
     dev = resolve_device(device)
-    logger = MetricsLogger(loop_cfg.log_dir, loop_cfg.tensorboard, loop_cfg.quiet)
+    mesh = mesh if mesh is not None else Mesh()
+    main = mesh.is_main
+    logger = MetricsLogger(loop_cfg.log_dir if main else None,
+                           loop_cfg.tensorboard and main, loop_cfg.quiet or not main)
     start_epoch, iteration, start_batch = 0, 0, 0
     histories: dict = {"loss": [], "wer": [], "cer": []}
     best_wer = float("inf")
@@ -153,8 +196,9 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
         variables = pkg.variables
     else:
         variables = init_train_variables(model_cfg, seed=loop_cfg.seed)
-    model = model_from_variables(variables, model_cfg, dev, trainable=True)
-    train_step = make_train_step(model, frontend_cfg, train_cfg, augment_fn)
+    model, train_step = rank_train_step(variables, model_cfg, frontend_cfg, train_cfg, dev,
+                                        mesh, direction_tp, augment_fn)
+    sharded = model.sharded
     eval_step = make_eval_step(model, frontend_cfg)
     optimizer = train_step.optimizer
     use_epoch_scan = hasattr(train_loader, "bucket_chunks")
@@ -163,23 +207,37 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
     gen = torch.Generator(device=dev) if augment_fn is not None else None
     if pkg is not None and not finetune:  # exact resume
         if pkg.opt_state is not None:
-            load_momentum(model, optimizer, pkg.opt_state)
+            load_momentum(model, optimizer, pkg.opt_state,
+                          lambda name, t: local_shard(t, sharded[name], mesh)
+                          if name in sharded else t)
         start_epoch, iteration, start_batch = pkg.epoch, pkg.iteration, pkg.epoch_batch
         histories = {"loss": list(pkg.loss_history), "wer": list(pkg.wer_history),
                      "cer": list(pkg.cer_history)}
         best_wer = pkg.best_wer
 
     def make_pkg(epoch: int, epoch_batch: int = 0) -> CheckpointPackage:
+        """The checkpoint package in the single-device layout (every model
+        rank calls it: the sharded leaves are gathered whole)."""
         return CheckpointPackage(
             model_config=model_cfg, frontend_config=frontend_cfg, labels=alphabet.labels,
-            variables=to_jax_variables(model),
-            opt_state=momentum_to_opt_state(model, optimizer),
+            variables=to_jax_variables(model, whole_state(model, mesh)),
+            opt_state=momentum_to_opt_state(
+                model, optimizer,
+                whole_tensors(momentum_buffers(model, optimizer), sharded, mesh)),
             epoch=epoch, iteration=iteration, epoch_batch=epoch_batch,
             loss_history=histories["loss"], wer_history=histories["wer"],
             cer_history=histories["cer"], best_wer=best_wer)
 
-    profiler = StepProfiler(loop_cfg.profile_dir)
+    profiler = StepProfiler(loop_cfg.profile_dir if main else None)
     guard = PreemptionGuard()
+
+    def stop() -> bool:
+        return mesh.any(guard.triggered)
+
+    def save(path: str, package: CheckpointPackage) -> None:
+        if main:
+            save_checkpoint(path, package)
+
     pkg = make_pkg(start_epoch, start_batch)
     epoch, epoch_done = start_epoch, start_batch
     try:
@@ -235,7 +293,7 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
                         # a checkpoint from another cap or path: slice
                         # off the consumed rows
                         r0 = s + max(resume_skip - lo, 0)
-                        if guard.triggered:
+                        if stop():
                             raise _PreemptionExit
                         k = e - r0
                         t0 = time.time()
@@ -258,16 +316,15 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
                             f"({int(n_valid[r0:e].sum()) / max(wall, 1e-9):.1f} utt/s)")
                         logger.flush()
                         if cap and loop_cfg.save_folder:
-                            save_checkpoint(
-                                f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{epoch_done}.ckpt",
-                                make_pkg(epoch, epoch_done))
-                        if guard.triggered:
+                            save(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{epoch_done}.ckpt",
+                                 make_pkg(epoch, epoch_done))
+                        if stop():
                             raise _PreemptionExit
             else:
                 for i, batch in enumerate(train_loader.epoch(epoch)):
                     if i < resume_skip:
                         continue
-                    if guard.triggered:
+                    if stop():
                         raise _PreemptionExit
                     window_data += time.time() - t_prev
                     if gen is not None:
@@ -285,8 +342,8 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
                     if (loop_cfg.checkpoint_per_batch and loop_cfg.save_folder
                             and (i + 1) % loop_cfg.checkpoint_per_batch == 0):
                         drain()
-                        save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{i + 1}.ckpt",
-                                        make_pkg(epoch, i + 1))
+                        save(f"{loop_cfg.save_folder}/tpuasr_e{epoch}_b{i + 1}.ckpt",
+                             make_pkg(epoch, i + 1))
                 drain()
 
             histories["loss"].append(loss_meter.avg)
@@ -305,16 +362,16 @@ def train(model_cfg: ModelConfig, frontend_cfg: FrontendConfig, train_cfg: Train
 
             pkg = make_pkg(epoch + 1)
             if loop_cfg.save_folder and loop_cfg.checkpoint_per_epoch:
-                save_checkpoint(f"{loop_cfg.save_folder}/tpuasr_{epoch + 1}.ckpt", pkg)
+                save(f"{loop_cfg.save_folder}/tpuasr_{epoch + 1}.ckpt", pkg)
             if loop_cfg.model_path and (np.isnan(wer) or wer <= best_wer):
                 if not np.isnan(wer):
                     best_wer = pkg.best_wer = wer
-                save_checkpoint(loop_cfg.model_path, pkg)
+                save(loop_cfg.model_path, pkg)
     except _PreemptionExit:
         pkg = make_pkg(epoch, epoch_done)
         if loop_cfg.save_folder:
             path = f"{loop_cfg.save_folder}/tpuasr_preempt.ckpt"
-            save_checkpoint(path, pkg)
+            save(path, pkg)
             logger.console(f"preemption signal: saved {path}; resume with "
                            f"--continue-from {path}")
         else:

@@ -25,6 +25,17 @@ Its draws come from a generator on the batch's device seeded with
 global step alone, so a run resumed mid-epoch, or cut into other
 chunks, draws what the continuous run drew.
 
+Distributed (``mesh``, a ``train.mesh.Mesh``): each rank of a data
+group runs its own rows of the global batch, the ranks' local batches
+concatenated in data-rank order, and the step is the single-process
+step on that batch. The BatchNorms take global statistics (the model's
+data group), the loss divides each rank's sum by the global count of
+usable utterances (all-reduced before the backward), the gradients and
+the loss are summed over the data group in one flat all-reduce after
+the backward, and the global norms count a replicated parameter once
+and sum a sharded one's squares over the model group. Augmentation
+draws for every row of the global batch and applies the rank's own.
+
 The resident runners take a chunk of K batches of one bucket as a (K, B)
 matrix of bank rows: one copy of the indices to the card, then per row a
 gather from the bank and the whole step (or eval forward and decode)
@@ -44,6 +55,8 @@ from tpuasr_torch.audio.frontend import FrontendConfig, log_spectrogram
 from tpuasr_torch.ctc.loss import ctc_loss
 from tpuasr_torch.device import to_device
 from tpuasr_torch.model.ds2 import DeepSpeech2
+from tpuasr_torch.parallel import all_reduce
+from tpuasr_torch.train.mesh import Mesh
 
 
 def _waves_to_float(waves: torch.Tensor) -> torch.Tensor:
@@ -95,9 +108,14 @@ def make_optimizer(model: DeepSpeech2, cfg: TrainConfig) -> torch.optim.SGD:
                            nesterov=cfg.nesterov, dampening=0.0)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(t.to(torch.float32).square().sum() for t in tensors))
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm):
+    of ``tensors`` (replicated: counted once) and of ``sharded`` (this
+    rank's shards, whose squares are summed over the model ``group``)."""
+    sq = sum(t.to(torch.float32).square().sum() for t in tensors)
+    if sharded:
+        sq = sq + all_reduce(sum(t.to(torch.float32).square().sum() for t in sharded), group)
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
@@ -126,12 +144,19 @@ def step_generator(device, seed: int, iteration: int,
 
 
 def batch_loss(model: DeepSpeech2, frontend_cfg: FrontendConfig, waves, wave_lengths,
-               labels, label_lengths, valid, augment_fn=None, gen=None):
+               labels, label_lengths, valid, augment_fn=None, gen=None, mesh: Mesh | None = None):
     """The train step's loss on one batch, before any update: the mean
     CTC loss over the ok utterances (train-mode BatchNorm, so running
     statistics move). ``augment_fn`` (an ``audio.augment.AugmentFn``)
     draws from ``gen``, a generator on the model's device. Returns
-    (loss, n_ok, n_frames), 0-d tensors on the model's device."""
+    (loss, n_ok, n_frames), 0-d tensors on the model's device. With a
+    ``mesh`` the batch is this rank's rows of the global batch: n_ok and
+    n_frames are the global counts, and the loss is this rank's part of
+    the global mean (its rows' sum over the global n_ok; the parts sum
+    to the mean)."""
+    data = mesh.data if mesh is not None else None
+    b = np.shape(waves)[0]
+    rows = (data.index * b, data.size * b) if data is not None else None
     device = next(model.parameters()).device
     waves = _waves_to_float(torch.as_tensor(waves, device=device))
     lengths = torch.as_tensor(wave_lengths, device=device).to(torch.int64)
@@ -140,22 +165,24 @@ def batch_loss(model: DeepSpeech2, frontend_cfg: FrontendConfig, waves, wave_len
     valid = torch.as_tensor(valid, device=device).to(torch.bool)
     with torch.no_grad():
         if augment_fn is not None:
-            waves, lengths = augment_fn.waves(gen, waves, lengths)
+            waves, lengths = augment_fn.waves(gen, waves, lengths, rows)
         feats, feat_lengths = log_spectrogram(waves, lengths, frontend_cfg)
         if augment_fn is not None:
-            feats = augment_fn.feats(gen, feats, feat_lengths)
+            feats = augment_fn.feats(gen, feats, feat_lengths, rows)
     # padding rows must not enter BatchNorm statistics: length 0
     feat_lengths = torch.where(valid, feat_lengths, 0)
     logits, out_lengths = model(feats, feat_lengths, train=True)
     per_utt = ctc_loss(logits, out_lengths, labels, label_lengths)
     ok = valid & (label_lengths <= out_lengths) & torch.isfinite(per_utt) & (per_utt < 1e29)
-    n_ok = ok.sum()
+    n_ok, n_frames = ok.sum(), (feat_lengths * valid).sum()
+    if data is not None:
+        n_ok, n_frames = all_reduce(torch.stack([n_ok, n_frames]), data).unbind(0)
     loss = torch.where(ok, per_utt, 0.0).sum() / n_ok.clamp(min=1)
-    return loss, n_ok, (feat_lengths * valid).sum()
+    return loss, n_ok, n_frames
 
 
 def make_train_step(model: DeepSpeech2, frontend_cfg: FrontendConfig,
-                    train_cfg: TrainConfig, augment_fn=None):
+                    train_cfg: TrainConfig, augment_fn=None, mesh: Mesh | None = None):
     """Returns ``train_step(waves, wave_lengths, labels, label_lengths,
     valid, lr, gen=None) -> metrics`` updating ``model`` (parameters and
     running statistics) and its optimizer in place; ``gen`` is the
@@ -165,9 +192,19 @@ def make_train_step(model: DeepSpeech2, frontend_cfg: FrontendConfig,
     ``grad_norm`` (before clipping), ``param_norm`` (after the update),
     ``n_ok`` and ``n_frames``. The optimizer (its momentum buffers are
     the state that checkpoints keep) is ``train_step.optimizer``, the
-    device ``train_step.device``."""
+    device ``train_step.device``. With a ``mesh`` (the model already put
+    on it by ``train.mesh.shard_model_``) the inputs are this rank's
+    rows and the metrics are the global step's."""
     optimizer = make_optimizer(model, train_cfg)
     params = list(model.parameters())
+    mesh = mesh if mesh is not None else Mesh()
+    named = list(model.named_parameters())
+    replicated = [p for n, p in named if n not in model.sharded]
+    sharded = [p for n, p in named if n in model.sharded]
+
+    def norm(tensors_of):
+        return global_norm([tensors_of(p) for p in replicated],
+                           [tensors_of(p) for p in sharded], mesh.model)
     if model.config.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False  # f32 convs in full f32
 
@@ -175,22 +212,30 @@ def make_train_step(model: DeepSpeech2, frontend_cfg: FrontendConfig,
         if augment_fn is not None and gen is None:
             raise ValueError("an augmenting train step needs the step's generator")
         loss, n_ok, n_frames = batch_loss(model, frontend_cfg, waves, wave_lengths,
-                                          labels, label_lengths, valid, augment_fn, gen)
+                                          labels, label_lengths, valid, augment_fn, gen, mesh)
         optimizer.zero_grad(set_to_none=False)
         loss.backward()
         grads = [p.grad for p in params]
         with torch.no_grad():
-            grad_norm = global_norm(grads)
+            loss = loss.detach()
+            if mesh.data is not None:  # one flat all-reduce: the gradients and the loss
+                flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [loss[None]]),
+                                  mesh.data)
+                for g, part in zip(grads, flat.split([g.numel() for g in grads] + [1])):
+                    g.copy_(part.view_as(g))
+                loss = flat[-1]
+            grad_norm = norm(lambda p: p.grad)
             clip_by_global_norm_(grads, train_cfg.max_norm, grad_norm)
             for group in optimizer.param_groups:
                 group["lr"] = lr
             optimizer.step()
-            param_norm = global_norm(params)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
+            param_norm = norm(lambda p: p)
+        return {"loss": loss, "grad_norm": grad_norm, "param_norm": param_norm,
                 "n_ok": n_ok, "n_frames": n_frames}
 
     train_step.optimizer = optimizer
     train_step.augment_fn = augment_fn
+    train_step.mesh = mesh
     train_step.device = params[0].device
     return train_step
 
