@@ -1,0 +1,6 @@
+"""Share of the traced serving window in which the device ran nothing."""
+from benchmark.lib.readers import idle_percent
+
+
+def read(work: dict):
+    return idle_percent(work) if work.get("entry") == "serve" else None
