@@ -2704,7 +2704,7 @@ def warm_chunk_without_sync(loader, ckpt, noise_dir: str, smi: str,
     emit("sync_check", ok=True, **row)
     check(row["losses_finite"], f"a warm chunk's losses: {vals['loss']}")
 
-    from tpuasr_torch.train.profiling import StepProfiler
+    from tpuasr_torch.profiling import StepProfiler
 
     trace_dir = ROOT / "build" / "chip_smoke" / "trace_chunk"
     k = len(idx)

@@ -43,10 +43,10 @@ from tpuasr_torch.data.manifest import order_and_prune, read_manifest
 from tpuasr_torch.data.resident import ResidentBatchLoader
 from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import ModelConfig
+from tpuasr_torch.profiling import StepProfiler
 from tpuasr_torch.train import loop as loop_mod
 from tpuasr_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tpuasr_torch.train.loop import LoopConfig, train
-from tpuasr_torch.train.profiling import StepProfiler
 from tpuasr_torch.train.step import TrainConfig, make_eval_step, make_resident_eval_runner
 
 BATCH, SEED = 2, 5

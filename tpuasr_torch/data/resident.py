@@ -27,6 +27,7 @@ from tpuasr_torch.data.buckets import BucketingPlan
 from tpuasr_torch.data.loader import AudioBatchLoader, Batch
 from tpuasr_torch.device import resolve_device, to_device
 from tpuasr_torch.labels import Alphabet
+from tpuasr_torch.profiling import span
 
 
 @dataclass
@@ -136,9 +137,10 @@ class ResidentBatchLoader:
         for k, pb in enumerate(shards[self.rank]):
             by_buckets.setdefault(tuple(s[k].bucket for s in shards), []).append(pb)
         for buckets in sorted(by_buckets):
-            b = buckets[self.rank]
-            bank, pbs = self.banks[b], by_buckets[buckets]
-            idx_mat = np.asarray([self._rows(bank, pb.indices) for pb in pbs], np.int32)
-            n_valid = np.asarray([len(pb.indices) for pb in pbs], np.int32)
-            valid_mat = np.arange(bsz)[None, :] < n_valid[:, None]
+            with span("resident.chunk"):
+                b = buckets[self.rank]
+                bank, pbs = self.banks[b], by_buckets[buckets]
+                idx_mat = np.asarray([self._rows(bank, pb.indices) for pb in pbs], np.int32)
+                n_valid = np.asarray([len(pb.indices) for pb in pbs], np.int32)
+                valid_mat = np.arange(bsz)[None, :] < n_valid[:, None]
             yield b, bank, idx_mat, n_valid, valid_mat

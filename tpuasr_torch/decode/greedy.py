@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from tpuasr_torch.labels import Alphabet
+from tpuasr_torch.profiling import span
 
 
 def greedy_best_path(logits: torch.Tensor, lengths: torch.Tensor,
@@ -35,16 +36,20 @@ class GreedyDecoder:
         self._blank = alphabet.blank_id
 
     def decode(self, logits, lengths, return_offsets: bool = False):
-        ids, emit = greedy_best_path(torch.as_tensor(logits),
-                                     torch.as_tensor(lengths),
-                                     blank_id=self._blank)
-        ids = ids.cpu().numpy()
-        emit = emit.cpu().numpy()
-        texts, offsets = [], []
-        for b in range(ids.shape[0]):
-            frames = np.nonzero(emit[b])[0]
-            texts.append(self.alphabet.decode(ids[b, frames]))
-            offsets.append(frames)
+        """Spans: ``greedy.readback`` (the best path and its copies to
+        the host, which wait for the card) and ``greedy.text``."""
+        with span("greedy.readback"):
+            ids, emit = greedy_best_path(torch.as_tensor(logits),
+                                         torch.as_tensor(lengths),
+                                         blank_id=self._blank)
+            ids = ids.cpu().numpy()
+            emit = emit.cpu().numpy()
+        with span("greedy.text"):
+            texts, offsets = [], []
+            for b in range(ids.shape[0]):
+                frames = np.nonzero(emit[b])[0]
+                texts.append(self.alphabet.decode(ids[b, frames]))
+                offsets.append(frames)
         if return_offsets:
             return texts, offsets
         return texts

@@ -39,6 +39,7 @@ from tpuasr_torch.data.buckets import BucketSpec
 from tpuasr_torch.decode.greedy import GreedyDecoder
 from tpuasr_torch.decode.longform import samples_per_frame, transcribe_longform
 from tpuasr_torch.device import resolve_device
+from tpuasr_torch.profiling import count, sample, span, tracing
 from tpuasr_torch.train.checkpoint import load_checkpoint
 from tpuasr_torch.train.step import make_eval_step
 
@@ -117,6 +118,8 @@ class TranscriptionService:
                 wave = wave[:cap]
         done = threading.Event()
         slot: dict = {}
+        if tracing():
+            slot["t_enq"] = time.perf_counter_ns()
         self._queue.put((wave, slot, done))
         if not done.wait(timeout):
             raise TimeoutError("transcription timed out")
@@ -147,70 +150,96 @@ class TranscriptionService:
 
     def _collect(self):
         """Block for one request, then drain up to max_batch within the
-        batching window."""
+        batching window (span ``serve.collect``), sampling each traced
+        request's queue wait (``serve.queue_wait_s``) as the batch
+        closes."""
         try:
             first = self._queue.get(timeout=0.2)
         except queue.Empty:
             return []
-        batch = [first]
-        deadline = time.time() + self.cfg.batch_window_ms / 1e3
-        while len(batch) < self.cfg.max_batch:
-            remaining = deadline - time.time()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(self._queue.get(timeout=remaining))
-            except queue.Empty:
-                break
+        with span("serve.collect"):
+            batch = [first]
+            deadline = time.time() + self.cfg.batch_window_ms / 1e3
+            while len(batch) < self.cfg.max_batch:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            if tracing():
+                now = time.perf_counter_ns()
+                for _, slot, _ in batch:
+                    if "t_enq" in slot:
+                        sample("serve.queue_wait_s", (now - slot.pop("t_enq")) / 1e9)
         return batch
 
     def _serve_loop(self):
+        cap = int(self.cfg.max_seconds * self.spec.sample_rate)
         while not self._stop.is_set():
             batch = self._collect()
             if not batch:
                 continue
-            cap = int(self.cfg.max_seconds * self.spec.sample_rate)
             short = [r for r in batch if len(r[0]) <= cap]
             long_ = [r for r in batch if len(r[0]) > cap]
             if short:
                 try:
-                    waves, slots, dones = zip(*short)
-                    n_max = max(len(w) for w in waves)
-                    b_idx = self.spec.bucket_of(n_max / self.spec.sample_rate)
-                    l_bucket = self.spec.bucket_samples(b_idx)
-                    bsz = self.cfg.max_batch  # static batch dim
-                    arr = np.zeros((bsz, l_bucket), np.float32)
-                    lengths = np.zeros((bsz,), np.int32)
-                    for j, w in enumerate(waves):
-                        arr[j, : len(w)] = w
-                        lengths[j] = len(w)
-                    logits, out_lengths = self.eval_step(arr, lengths)
-                    texts, offsets = self.decoder.decode(
-                        logits, out_lengths, return_offsets=True
-                    )
-                    for j, (slot, done) in enumerate(zip(slots, dones)):
-                        slot["text"] = texts[j]
-                        slot["offsets"] = np.asarray(offsets[j]).tolist()
-                        done.set()
+                    self._serve_batch(short)
                 except Exception as exc:  # report, never wedge callers
                     for _, slot, done in short:
                         slot["error"] = repr(exc)
                         done.set()
-            # long-form requests: overlapping ladder-sized chunks through
-            # the same (max_batch, bucket) shapes, stitched + decoded on host
-            for wave, slot, done in long_:
-                try:
-                    text, frames = transcribe_longform(
-                        self.eval_step, wave, self.alphabet, self.spec,
-                        self.decoder, overlap_seconds=self.cfg.chunk_overlap,
-                        batch_size=self.cfg.max_batch,
-                        spf=samples_per_frame(self.frontend_cfg),
-                    )
-                    slot["text"] = text
-                    slot["offsets"] = np.asarray(frames).tolist()
-                except Exception as exc:
-                    slot["error"] = repr(exc)
+            if long_:
+                self._serve_longform(long_)
+
+    def _serve_batch(self, requests: list) -> None:
+        """One padded batch of ``max_batch`` rows at the bucket of its
+        longest wave: spans ``serve.pad``, ``serve.forward``, the
+        decoder's, ``serve.respond``; counters ``serve.batches``,
+        ``serve.rows``, ``serve.real_samples`` and
+        ``serve.computed_samples`` (``max_batch`` x the bucket's)."""
+        with span("serve.pad"):
+            waves, slots, dones = zip(*requests)
+            n_max = max(len(w) for w in waves)
+            b_idx = self.spec.bucket_of(n_max / self.spec.sample_rate)
+            l_bucket = self.spec.bucket_samples(b_idx)
+            bsz = self.cfg.max_batch  # static batch dim
+            arr = np.zeros((bsz, l_bucket), np.float32)
+            lengths = np.zeros((bsz,), np.int32)
+            for j, w in enumerate(waves):
+                arr[j, : len(w)] = w
+                lengths[j] = len(w)
+            if tracing():
+                count("serve.batches")
+                count("serve.rows", len(waves))
+                count("serve.real_samples", int(lengths.sum()))
+                count("serve.computed_samples", bsz * l_bucket)
+        with span("serve.forward"):
+            logits, out_lengths = self.eval_step(arr, lengths)
+        texts, offsets = self.decoder.decode(logits, out_lengths, return_offsets=True)
+        with span("serve.respond"):
+            for j, (slot, done) in enumerate(zip(slots, dones)):
+                slot["text"] = texts[j]
+                slot["offsets"] = np.asarray(offsets[j]).tolist()
                 done.set()
+
+    def _serve_longform(self, requests: list) -> None:
+        """Long-form requests: overlapping ladder-sized chunks through the
+        same (max_batch, bucket) shapes, stitched and decoded on host."""
+        for wave, slot, done in requests:
+            try:
+                text, frames = transcribe_longform(
+                    self.eval_step, wave, self.alphabet, self.spec,
+                    self.decoder, overlap_seconds=self.cfg.chunk_overlap,
+                    batch_size=self.cfg.max_batch,
+                    spf=samples_per_frame(self.frontend_cfg),
+                )
+                slot["text"] = text
+                slot["offsets"] = np.asarray(frames).tolist()
+            except Exception as exc:
+                slot["error"] = repr(exc)
+            done.set()
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ copy in, the steps queued with nothing read back, one read-back of the
 chunk's metrics. ``--checkpoint-per-batch N`` caps a chunk at N steps
 with a checkpoint after each; preemption is checked between chunks.
 Validation stays on the per-batch loader. ``profile_dir`` traces global
-steps [10, 15) with ``train.profiling.StepProfiler``.
+steps [10, 15) with ``profiling.StepProfiler``.
 
 Distributed (``mesh``, a ``train.mesh.Mesh`` from ``make_mesh``): the
 loaders hold this rank's data shard (data index and data-group size).
@@ -61,6 +61,7 @@ from tpuasr_torch.decode.metrics import ErrorRateMeter
 from tpuasr_torch.device import resolve_device
 from tpuasr_torch.labels import Alphabet
 from tpuasr_torch.model.ds2 import ModelConfig
+from tpuasr_torch.profiling import StepProfiler, span
 from tpuasr_torch.train.checkpoint import CheckpointPackage, load_checkpoint, save_checkpoint
 from tpuasr_torch.train.logging import AverageMeter, MetricsLogger
 from tpuasr_torch.train.mesh import (
@@ -71,7 +72,6 @@ from tpuasr_torch.train.mesh import (
     whole_state,
     whole_tensors,
 )
-from tpuasr_torch.train.profiling import StepProfiler
 from tpuasr_torch.train.step import (
     TrainConfig,
     make_eval_step,
@@ -146,8 +146,10 @@ def evaluate(eval_step, loader: AudioBatchLoader,
 
 def read_back(metrics: dict) -> dict:
     """Metrics tensors (0-d, or stacked over a chunk) as host float64
-    arrays, in one copy from the device."""
-    vals = torch.stack([v.to(torch.float64) for v in metrics.values()]).cpu().numpy()
+    arrays, in one copy from the device (span ``train.read_back``: the
+    wait for the card and the copy)."""
+    with span("train.read_back"):
+        vals = torch.stack([v.to(torch.float64) for v in metrics.values()]).cpu().numpy()
     return dict(zip(metrics, vals))
 
 

@@ -56,6 +56,7 @@ from tpuasr_torch.ctc.loss import ctc_loss
 from tpuasr_torch.device import to_device
 from tpuasr_torch.model.ds2 import DeepSpeech2
 from tpuasr_torch.parallel import all_reduce
+from tpuasr_torch.profiling import span
 from tpuasr_torch.train.mesh import Mesh
 
 
@@ -194,7 +195,9 @@ def make_train_step(model: DeepSpeech2, frontend_cfg: FrontendConfig,
     the state that checkpoints keep) is ``train_step.optimizer``, the
     device ``train_step.device``. With a ``mesh`` (the model already put
     on it by ``train.mesh.shard_model_``) the inputs are this rank's
-    rows and the metrics are the global step's."""
+    rows and the metrics are the global step's. Spans (``profiling``):
+    ``train.loss``, ``train.backward`` (with ``zero_grad``) and
+    ``train.update`` (the all-reduce, norms, clip and optimizer step)."""
     optimizer = make_optimizer(model, train_cfg)
     params = list(model.parameters())
     mesh = mesh if mesh is not None else Mesh()
@@ -211,12 +214,14 @@ def make_train_step(model: DeepSpeech2, frontend_cfg: FrontendConfig,
     def train_step(waves, wave_lengths, labels, label_lengths, valid, lr: float, gen=None):
         if augment_fn is not None and gen is None:
             raise ValueError("an augmenting train step needs the step's generator")
-        loss, n_ok, n_frames = batch_loss(model, frontend_cfg, waves, wave_lengths,
-                                          labels, label_lengths, valid, augment_fn, gen, mesh)
-        optimizer.zero_grad(set_to_none=False)
-        loss.backward()
+        with span("train.loss"):
+            loss, n_ok, n_frames = batch_loss(model, frontend_cfg, waves, wave_lengths, labels,
+                                              label_lengths, valid, augment_fn, gen, mesh)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=False)
+            loss.backward()
         grads = [p.grad for p in params]
-        with torch.no_grad():
+        with span("train.update"), torch.no_grad():
             loss = loss.detach()
             if mesh.data is not None:  # one flat all-reduce: the gradients and the loss
                 flat = all_reduce(torch.cat([g.reshape(-1) for g in grads] + [loss[None]]),
@@ -259,24 +264,28 @@ def make_resident_epoch_runner(train_step, seed: int = 0):
     metric stacked over the K steps, on the device, nothing read back.
     Step k draws from ``step_generator(device, seed, k0 + k)``, so chunk
     boundaries do not move the stream; ``profiler`` (a
-    ``train.profiling.StepProfiler``) sees global steps k0 + k."""
+    ``profiling.StepProfiler``) sees global steps k0 + k. Spans:
+    ``train.chunk`` (the index copy and the dispatch of the K steps) and
+    ``train.step`` around each step's dispatch."""
     device = train_step.device
     augment = train_step.augment_fn is not None
 
     def run_epoch(bank, idx_mat, valid_mat, lr: float, k0: int, profiler=None):
-        idx, valid = chunk_to_device(device, idx_mat, valid_mat)
-        valid = valid.to(torch.bool)
-        gen = torch.Generator(device=device) if augment else None
-        rows = []
-        for k in range(idx.shape[0]):
-            if augment:
-                step_generator(device, seed, k0 + k, gen)
-            if profiler is not None:
-                profiler.maybe_start(k0 + k)
-            rows.append(train_step(*_gather(bank, idx[k]), valid[k], lr, gen))
-            if profiler is not None:
-                profiler.maybe_stop(k0 + k + 1)
-        return {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
+        with span("train.chunk"):
+            idx, valid = chunk_to_device(device, idx_mat, valid_mat)
+            valid = valid.to(torch.bool)
+            gen = torch.Generator(device=device) if augment else None
+            rows = []
+            for k in range(idx.shape[0]):
+                if augment:
+                    step_generator(device, seed, k0 + k, gen)
+                if profiler is not None:
+                    profiler.maybe_start(k0 + k)
+                with span("train.step"):
+                    rows.append(train_step(*_gather(bank, idx[k]), valid[k], lr, gen))
+                if profiler is not None:
+                    profiler.maybe_stop(k0 + k + 1)
+            return {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
 
     return run_epoch
 
