@@ -11,6 +11,8 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
 (``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]`` only times the
 device-beam path from a work directory a full run left: time_beam_path.
+``--time-bwd LABEL [ROOT]`` only times the backward kernels and splits
+their loop's step (bwd_times), with the tpuasr_torch of ROOT if given.
 ``python3 chip_smoke.py --stream-only`` runs phase 10 alone, on a corpus
 and word LM of its own, and prints no result line; ``--dist-only`` does
 the same for phase 13. ``--dist-worker SPEC --rank R --world-size N
@@ -466,7 +468,8 @@ def cudnn_rnn_bwd_ms(xg, w_h, b_h, iters, n_gates=3):
 def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     """A backward kernel's time at (T, B, H, D) bf16: the whole call, its
     two launches apart (CUDA events around the hg GEMM and the
-    persistent loop, means of 10 calls), the plain loop, cuDNN's backward
+    persistent loop, means of 10 calls), the loop's step split
+    (``bwd_split`` over 3 calls, scaled to the untimed loop), the plain loop, cuDNN's backward
     (median and range over 5 separate timings of 10 calls: it swings
     between calls) and the bound."""
     import torch
@@ -488,36 +491,37 @@ def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=n_gates, backward=True)
     return {"shape": [t, nd, b, h], "dtype": "bfloat16", "ms": ms,
             "hg_gemm_ms": split["hg"], "loop_ms": split["loop"],
+            "loop_split": (split_us(bwd_split(lambda: fn(*args), reps=3), split["loop"])
+                           if split["loop"] else None),
             "plain_ms": time_ms(lambda: plain(*args), iters=2),
             "library_ms": lib[len(lib) // 2], "library_ms_range": [lib[0], lib[-1]],
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def fwd_split(run, reps: int = 1):
-    """The forward kernels' step split: ``run()`` (``reps`` times) with
-    their per-part step timer on (``tpuasr_torch.ops.gru.fwd_parts``),
-    reduced over every block and call: each part's share of the loop's
-    clock64 cycles (barrier wait, the first window of h landing, the rest
-    of the product with its exchange, the gate math), cycles a step, and
-    the steps a run takes. While the timer is on the first window of h
-    is waited for before the product starts, so the shares describe a
-    step with that wait made visible. None when nothing launched (a CPU
-    rehearsal)."""
+def step_split(parts_attr: str, names_attr: str, run, reps: int = 1):
+    """A fused RNN loop's step split: ``run()`` (``reps`` times) with its
+    per-part step timer on (the list ``tpuasr_torch.ops.gru.<parts_attr>``,
+    parts named by ``<names_attr>``), reduced over every block and call:
+    each part's share of the loop's clock64 cycles, cycles a step, and the
+    steps a run takes. None when nothing launched (a CPU rehearsal) or the
+    checkout has no such timer."""
     import torch
 
     import tpuasr_torch.ops.gru as gru_mod
 
-    gru_mod.fwd_parts = []
+    if not hasattr(gru_mod, names_attr):
+        return None
+    setattr(gru_mod, parts_attr, [])
     try:
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-        parts = gru_mod.fwd_parts
+        parts = getattr(gru_mod, parts_attr)
     finally:
-        gru_mod.fwd_parts = None
+        setattr(gru_mod, parts_attr, None)
     if not parts:
         return None
-    names = gru_mod.FWD_PARTS
+    names = getattr(gru_mod, names_attr)
     cycles = dict.fromkeys(names, 0.0)
     steps = 0
     for call in parts:
@@ -530,14 +534,106 @@ def fwd_split(run, reps: int = 1):
             "steps_per_run": steps / reps}
 
 
+def fwd_split(run, reps: int = 1):
+    """The forward kernels' step split (``step_split`` of ``fwd_parts``):
+    barrier wait, the first window of h landing, the rest of the product
+    with its exchange, the gate math. While the timer is on the first
+    window of h is waited for before the product starts, so the shares
+    describe a step with that wait made visible."""
+    return step_split("fwd_parts", "FWD_PARTS", run, reps)
+
+
+def bwd_split(run, reps: int = 1):
+    """The backward loop's step split (``step_split`` of ``bwd_parts``):
+    the wait for the step's hg, the gate math, the barrier wait, the wait
+    for dhg (the L2 stream's words, or the cluster's staged chunks), the
+    rest of the carry product with its reduction. While the timer is on
+    every warp waits for a k-step's words before its product."""
+    return step_split("bwd_parts", "BWD_PARTS", run, reps)
+
+
 def split_us(split, kernel_ms: float):
-    """``fwd_split``'s shares as microseconds a step of a kernel whose
+    """``step_split``'s shares as microseconds a step of a kernel whose
     (untimed) calls of one run took ``kernel_ms`` in all."""
     if split is None:
         return None
     step_us = kernel_ms * 1e3 / split["steps_per_run"]
     return {**split, "step_us": step_us,
             "us_per_step": {k: v * step_us for k, v in split["share"].items()}}
+
+
+# (kind, T', B, D) of the bwd_split phase: K1b and K4b at both buckets,
+# K1b with one direction, K5b, then each at B=128 and past one plan's
+# rows (row groups: B=448 for the GRUs, 320 for the LSTM, at T'=51)
+BWD_TIME_CASES = (
+    ("gru", 251, 32, 2), ("gru", 826, 32, 2), ("lstm", 251, 32, 2), ("lstm", 826, 32, 2),
+    ("gru", 251, 32, 1), ("gru", 826, 32, 1), ("gru2", 251, 32, 2),
+    ("gru", 251, 128, 2), ("lstm", 251, 128, 2), ("gru2", 251, 128, 2),
+    ("gru", 51, 448, 2), ("lstm", 51, 320, 2), ("gru2", 51, 448, 2),
+)
+
+
+def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
+              device: str = "cuda") -> list:
+    """The ``bwd_split`` phase: for each of ``cases`` the backward call's
+    time (CUDA events around 10 calls), its loop's (``bwd_events``), the
+    loop's step split scaled to that time (``bwd_split``, 3 calls), and
+    each row group's cluster size where the checkout's plan has one. One
+    JSON line a case, tagged ``label``, also appended to
+    ``chiprun_out/bwd_times.jsonl``; the tpuasr_torch imported is the first
+    on sys.path (the ``--time-bwd`` mode times another checkout this way)."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+    import tpuasr_torch.ops.gru2 as gru2_mod
+    import tpuasr_torch.ops.lstm as lstm_mod
+
+    dev = torch.device(device)
+    rows = []
+    for kind, t, b, nd in cases:
+        g = 4 if kind == "lstm" else 3
+        xg, w_h, b_h, mask = gru_case(t, b, 800, nd, torch.bfloat16, seed=0, device=dev,
+                                      n_gates=g)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if kind == "lstm":
+            ys, cs = lstm_mod.bilstm_forward(xg, w_h, b_h, mask)
+            dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
+            args = (xg, w_h, b_h, mask, gru_mod.shift_time(ys), gru_mod.shift_time(cs), cs, dy)
+            fn, lib = lstm_mod.bilstm_backward, "bilstm_bwd"
+        else:
+            ys = gru_mod.bigru_forward(xg, w_h, b_h, mask)
+            dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
+            if kind == "gru2":
+                args = (*gate_major(xg, w_h, b_h), mask, gru_mod.shift_time(ys), dy)
+                fn, lib = gru2_mod.bigru2_backward, "bigru2_bwd"
+            else:
+                args = (xg, w_h, b_h, mask, gru_mod.shift_time(ys), dy)
+                fn, lib = gru_mod.bigru_backward, "bigru_bwd"
+        ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
+        gru_mod.bwd_events = []
+        try:
+            for _ in range(10):
+                fn(*args)
+            torch.cuda.synchronize()
+            events = gru_mod.bwd_events
+        finally:
+            gru_mod.bwd_events = None
+        calls = len(events) / 10  # row groups a call
+        loop_ms = sum(e["loop"][0].elapsed_time(e["loop"][1]) for e in events) / 10
+        hg_ms = sum(e["hg"][0].elapsed_time(e["hg"][1]) for e in events) / 10
+        row = {"label": label, "kind": kind, "shape": [t, nd, b, 800], "ms": ms,
+               "loop_ms": loop_ms, "hg_gemm_ms": hg_ms, "row_groups": calls,
+               "split": split_us(bwd_split(lambda: fn(*args), reps=3), loop_ms)}
+        if hasattr(gru_mod, "bwd_plans"):
+            row["clusters"] = [plan.cluster for _, plan in
+                               gru_mod.bwd_plans(lib, g, nd, b, 800, 2, dev)]
+        emit("bwd_split", **row, nvidia_smi=smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        with open(out / "bwd_times.jsonl", "a") as f:
+            f.write(json.dumps({**row, "nvidia_smi": smi}) + "\n")
+        rows.append(row)
+    return rows
 
 
 def fwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
@@ -3896,6 +3992,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--time-ctc"]:  # LABEL [ROOT]
         sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
         ctc_times(nvidia_smi_line(), label=sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--time-bwd"]:  # LABEL [ROOT]
+        sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
+        bwd_times(nvidia_smi_line(), label=sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--time-beam"]:  # WORK LABEL [ROOT]
         sys.path.insert(0, sys.argv[4] if len(sys.argv) > 4 else str(ROOT))

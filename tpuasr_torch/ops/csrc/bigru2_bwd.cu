@@ -39,13 +39,14 @@ int tpuasr_bigru2_bwd_hg(const void* h_prev, const void* w_h, const float* b_h, 
 int tpuasr_bigru2_bwd_loop(const void* xg, const void* w_h, const float* mask,
                            const void* h_prev, const void* c_prev, const void* cs,
                            const void* dy, const float* hg, void* dg, float* dhg,
-                           unsigned int* bar, const int* layout, int T_len, int D, int B,
-                           int H, int dtype, void* stream) {
+                           unsigned int* bar, long long* timer, const int* layout, int T_len,
+                           int D, int B, int H, int dtype, void* stream) {
   using namespace tpuasr_rnn;
   const size_t h = H;
   return bwd_loop<3>(xg, GateStrides{3 * B * h, h, B * h}, w_h, WLayout{H, H * H}, mask,
                      h_prev, c_prev, cs, dy, hg, dg, GateStrides{4 * B * h, h, B * h}, dhg,
-                     bar, layout, T_len, D, B, H, dtype, static_cast<cudaStream_t>(stream));
+                     bar, timer, layout, T_len, D, B, H, dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int tpuasr_rnn_device_limits(int* n_sms, int* smem_optin) {

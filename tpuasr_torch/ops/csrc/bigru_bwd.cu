@@ -57,13 +57,13 @@ int tpuasr_bigru_bwd_hg(const void* h_prev, const void* w_h, const float* b_h, f
 int tpuasr_bigru_bwd_loop(const void* xg, const void* w_h, const float* mask,
                           const void* h_prev, const void* c_prev, const void* cs,
                           const void* dy, const float* hg, void* packed, float* dhg,
-                          unsigned int* bar, const int* layout, int T_len, int D, int B,
-                          int H, int dtype, void* stream) {
+                          unsigned int* bar, long long* timer, const int* layout, int T_len,
+                          int D, int B, int H, int dtype, void* stream) {
   using namespace tpuasr_rnn;
   const size_t h = H;
   return bwd_loop<3>(xg, GateStrides{B * 3 * h, 3 * h, h}, w_h, WLayout{3 * H, H}, mask,
                      h_prev, c_prev, cs, dy, hg, packed, GateStrides{B * 4 * h, 4 * h, h},
-                     dhg, bar, layout, T_len, D, B, H, dtype,
+                     dhg, bar, timer, layout, T_len, D, B, H, dtype,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -55,13 +55,13 @@ int tpuasr_bilstm_bwd_hg(const void* h_prev, const void* w_h, const float* b_h, 
 int tpuasr_bilstm_bwd_loop(const void* xg, const void* w_h, const float* mask,
                            const void* h_prev, const void* c_prev, const void* cs,
                            const void* dy, const float* hg, void* dhg, float* dhg_buf,
-                           unsigned int* bar, const int* layout, int T_len, int D, int B,
-                           int H, int dtype, void* stream) {
+                           unsigned int* bar, long long* timer, const int* layout, int T_len,
+                           int D, int B, int H, int dtype, void* stream) {
   using namespace tpuasr_rnn;
   const size_t h = H;
   const GateStrides s{B * 4 * h, 4 * h, h};  // (D, B, 4H)
   return bwd_loop<4>(xg, s, w_h, WLayout{4 * H, H}, mask, h_prev, c_prev, cs, dy, hg, dhg,
-                     s, dhg_buf, bar, layout, T_len, D, B, H, dtype,
+                     s, dhg_buf, bar, timer, layout, T_len, D, B, H, dtype,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -39,6 +39,13 @@
 //    t - 1, which every block passes after its part (b) of step t.
 // No sum uses atomics; every reduction has a fixed order, so a call is
 // bit-identical to the next, and K5b to K1b on relaid-out inputs.
+//
+// A per-part step timer (clock64 spans of thread 0, summed over steps:
+// the wait for HG[t], the gate math, the barrier wait, the wait for dhg's
+// words, the rest of the carry product with its reduction, and the whole
+// loop) is written when the caller hands a buffer; on the main path it is
+// null. While it runs, every warp waits for each k-step's words of dhg
+// before that k-step's product, so the wait is a span of its own.
 
 #pragma once
 
@@ -55,6 +62,7 @@ namespace tpuasr_rnn {
 constexpr int BW_UNITS = 16;  // units per slice (rnn_plan.UNITS)
 constexpr int BW_ROWS = 32;   // rows per carry-product pass (ROW_TILE)
 constexpr int BW_THREADS = 256;
+constexpr int BW_PARTS = 6;  // timer: hg wait, gate math, barrier, dhg wait, product, loop
 
 // rnn_plan.BwdPlan.as_ints(), in order. Byte offsets into dynamic shared
 // memory.
@@ -86,6 +94,7 @@ struct BwdArgs {
   GateStrides ps;
   float* dhg;         // (2, D, B, GP) 4-byte words (put_dhg), zero past NG*H
   unsigned int* bar;  // grid barrier counter, zero at the call's start
+  long long* timer;   // (n_blocks, BW_PARTS) clock64 sums, or null
   int T_len, D, B, H, HP, GP;
 };
 
@@ -349,12 +358,14 @@ __device__ __forceinline__ void put_dhg(float* row, int c, float v) {
 // (put_dhg), read from L2 by __ldcg (ld.global.cg, BW_PREFETCH k-steps
 // ahead), each multiplied into its own f32 accumulators. PINNED: all
 // 16 rows are in shared memory (the flagship case), so the loop has no
-// L2 path to skip.
+// L2 path to skip. wait: null, or the timer's sum of clock64 cycles spent
+// waiting for each k-step's words before its product.
 template <typename T, bool PINNED>
 __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int r0,
                                           const T* w_d, WLayout wl, int k0, int H, int G,
                                           const float* dg_d, int GP, int B, int b0, int kb,
-                                          int ke, int gq, int tq, float* red) {
+                                          int ke, int gq, int tq, float* red,
+                                          long long* wait) {
   const int ra = r0 + gq, rb = ra + 8;  // this lane's A rows: units gq, gq + 8
   const bool pa = PINNED || ra < L.pinned, pb = PINNED || rb < L.pinned;
   const T* wa = w_s + static_cast<size_t>(ra) * L.ws;
@@ -395,6 +406,26 @@ __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int 
       mma_bf16(acc_l[nt], a0, a1, a2, a3, bb[nt][0].y, bb[nt][1].y);
     }
   };
+  // the timer's wait: the second clock read is predicated on every word of
+  // the k-step, so it cannot issue before they have landed (where their
+  // XOR happens to equal the constant, the k-step counts no wait)
+  auto landed = [&](const uint2 (&bb)[4][2]) {
+    const long long c0 = clock64();
+    uint32_t sink = 0;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) sink ^= bb[nt][h].x ^ bb[nt][h].y;
+    long long c1;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "setp.ne.u32 p, %1, %3;\n\t"
+        "@p mov.u64 %0, %%clock64;\n\t"
+        "@!p mov.u64 %0, %2;\n\t}\n"
+        : "=l"(c1)
+        : "r"(sink), "l"(c0), "r"(0x9e3779b9u));
+    *wait += c1 - c0;
+  };
   uint2 buf[BW_PREFETCH][4][2];
 #pragma unroll
   for (int s = 0; s < BW_PREFETCH; ++s)
@@ -403,6 +434,7 @@ __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int 
 #pragma unroll
     for (int s = 0; s < BW_PREFETCH; ++s) {
       if (k + s < ke) {
+        if (wait) landed(buf[s]);
         compute(k + s, buf[s]);
         if (k + s + BW_PREFETCH < ke) load(k + s + BW_PREFETCH, buf[s]);
       }
@@ -479,6 +511,16 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
   const int state = nsl * B * BW_UNITS;
   const int hg_buf = L.spb * B * NG * BW_UNITS;
   const size_t dhg_buf = static_cast<size_t>(D) * B * GP;
+  const bool timed = a.timer != nullptr;
+  const long long t_begin = timed ? clock64() : 0;
+  long long clk[BW_PARTS - 1] = {0, 0, 0, 0, 0};
+  auto lap = [&](long long& c0, int part) {  // the timer: close a span of thread 0
+    if (timed) {
+      const long long c1 = clock64();
+      clk[part] += c1 - c0;
+      c0 = c1;
+    }
+  };
 
   // pin the block's rows of w_h[d] (K1's column order for every layout)
   for (int r = 0; r < L.pinned; ++r) {
@@ -601,8 +643,10 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
   prefetch_hg(a.T_len - 1, (a.T_len - 1) & 1);
   for (int i = 0; i < a.T_len; ++i) {
     const int t = a.T_len - 1 - i;
+    long long c0 = timed ? clock64() : 0;
     cp_async_wait<0>();  // HG[t] has landed
     __syncthreads();
+    lap(c0, 0);
     if (t > 0) prefetch_hg(t - 1, (t - 1) & 1);
     const float* hgt = hg_s + (t & 1) * hg_buf;
     float* dhg_t = a.dhg + (t & 1) * dhg_buf;
@@ -621,8 +665,11 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
       load_in(t, p, in);
       gate(t, p, in, hgt, dhg_t);
     }
+    lap(c0, 1);
     if (t == 0) break;  // the carry into h_{-1} is not needed
     grid_barrier(a.bar, static_cast<unsigned int>(i + 1) * gridDim.x);
+    lap(c0, 2);
+    long long wait = 0;  // the timer's dhg wait of this step
 
     // (b) carry[b, k] = sum_c dhg_t[d, b, c] w_h[d, k, c] + direct[b, k]
     for (int sl = 0; sl < nsl; ++sl) {
@@ -634,10 +681,10 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
           float* red_r = red + kr * BW_UNITS * BW_ROWS;
           if ((sl + 1) * BW_UNITS <= L.pinned)
             carry_mma<T, true>(w_s, L, sl * BW_UNITS, w_d, a.wl, k0, H, G, dg_d, GP, B,
-                               rt * BW_ROWS, kb, ke, gq, tq, red_r);
+                               rt * BW_ROWS, kb, ke, gq, tq, red_r, timed ? &wait : nullptr);
           else
             carry_mma<T, false>(w_s, L, sl * BW_UNITS, w_d, a.wl, k0, H, G, dg_d, GP, B,
-                                rt * BW_ROWS, kb, ke, gq, tq, red_r);
+                                rt * BW_ROWS, kb, ke, gq, tq, red_r, timed ? &wait : nullptr);
         } else {
           carry_fma(w_s, L, sl * BW_UNITS, w_d, a.wl, k0, H, G, dg_d, GP, B, rt * BW_ROWS,
                     kb, ke, lane, red + kr * BW_UNITS * BW_ROWS);
@@ -656,6 +703,15 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
         __syncthreads();
       }
     }
+    clk[3] += wait;
+    lap(c0, 4);
+    clk[4] -= wait;
+  }
+  if (timed && tid == 0) {
+    long long* out = a.timer + static_cast<size_t>(blockIdx.x) * BW_PARTS;
+#pragma unroll
+    for (int p = 0; p < BW_PARTS - 1; ++p) out[p] = clk[p];
+    out[BW_PARTS - 1] = clock64() - t_begin;
   }
 }
 
@@ -681,15 +737,16 @@ template <int NG>
 int bwd_loop(const void* xg, GateStrides xs, const void* w_h, WLayout wl,
              const float* mask, const void* hp, const void* cp, const void* cs,
              const void* dy, const float* hg, void* out, GateStrides ps, float* dhg,
-             unsigned int* bar, const int* layout, int T_len, int D, int B, int H,
-             int dtype, cudaStream_t stream) {
+             unsigned int* bar, long long* timer, const int* layout, int T_len, int D,
+             int B, int H, int dtype, cudaStream_t stream) {
   const BwdLayout L = read_layout(layout);
   auto run = [&](auto zero) {
     using T = decltype(zero);
     const BwdArgs<T> a{static_cast<const T*>(xg), xs, static_cast<const T*>(w_h), wl, mask,
                        static_cast<const T*>(hp), static_cast<const T*>(cp),
                        static_cast<const T*>(cs), static_cast<const T*>(dy), hg,
-                       static_cast<T*>(out), ps, dhg, bar, T_len, D, B, H, L.HP, L.GP};
+                       static_cast<T*>(out), ps, dhg, bar, timer, T_len, D, B, H, L.HP,
+                       L.GP};
     return launch_loop<T, NG>(a, L, stream);
   };
   if (dtype == 0) return run(0.0f);

@@ -197,7 +197,7 @@ def kernel_library(name: str) -> ctypes.CDLL:
         fns = {f"tpuasr_{name}": [p] * (4 + n_out) + [p] * 3 + [i] * 5 + [p]}
     else:
         fns = {f"tpuasr_{name}_hg": [p] * 4 + [i] * 6 + [p],
-               f"tpuasr_{name}_loop": [p] * 12 + [i] * 5 + [p]}
+               f"tpuasr_{name}_loop": [p] * 13 + [i] * 5 + [p]}
     fns["tpuasr_rnn_device_limits"] = [ctypes.POINTER(i)] * 2
     for fn_name, argtypes in fns.items():
         fn = getattr(lib, fn_name)
@@ -244,6 +244,12 @@ BWD_LAUNCHES = 2  # per backward call and row group: the hg GEMM and the persist
 # events {"hg": (start, end), "loop": (start, end)} per row group; None:
 # no events.
 bwd_events: list | None = None
+BWD_PARTS = ("hg_wait", "gate", "barrier", "dhg_wait", "product", "loop")  # the C side's timer
+# A list to split the backward loop's step: each call appends, per row
+# group, {"timer": (n_blocks, 6) int64 tensor of clock64 sums over the
+# steps in BWD_PARTS order (thread 0 of each block), "T": steps}; None:
+# no timer (the main path).
+bwd_parts: list | None = None
 
 
 def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
@@ -261,8 +267,9 @@ def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
     that of one call. A group's rows are copied into contiguous tensors
     (and its output back), so that the kernels index one batch size; the
     copies are taken only past the plan's limit (422 rows at BiGRU-800 on
-    an H100). Appends the launches' CUDA events to ``bwd_events`` when
-    that is a list. Returns the number of row groups."""
+    an H100). Appends the launches' CUDA events to ``bwd_events``, and the
+    loop's step timer to ``bwd_parts``, when that is a list. Returns the
+    number of row groups."""
     t_len, nd = xg.shape[:2]
     b, h = h_prev.shape[2], h_prev.shape[3]
     dev = xg.device
@@ -281,6 +288,8 @@ def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
         hg = torch.empty((t_len, nd, bg, n_gates, plan.HP), **f32)  # hg of every step
         dhg = torch.zeros((2, nd, bg, plan.GP), **f32)  # dhg of steps t % 2 (put_dhg); pad stays 0
         bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
+        timer = (None if bwd_parts is None else
+                 torch.zeros((plan.n_blocks, len(BWD_PARTS)), dtype=torch.int64, device=dev))
         ints = plan.as_ints()
         layout = (ctypes.c_int * len(ints))(*ints)
         with torch.cuda.device(dev):
@@ -298,11 +307,14 @@ def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
             err = getattr(lib, f"tpuasr_{name}_loop")(
                 xg_g.data_ptr(), w_h.data_ptr(), mask_g.data_ptr(), hp_g.data_ptr(),
                 ptr(cp_g), ptr(cs_g), dy_g.data_ptr(), hg.data_ptr(), out_g.data_ptr(),
-                dhg.data_ptr(), bar.data_ptr(), layout, t_len, nd, bg, h, code, stream)
+                dhg.data_ptr(), bar.data_ptr(), ptr(timer), layout, t_len, nd, bg, h, code,
+                stream)
             raise_on(lib, err, f"{name} loop")
             if ev:
                 ev[2].record()
                 bwd_events.append({"hg": (ev[0], ev[1]), "loop": (ev[1], ev[2])})
+        if timer is not None:
+            bwd_parts.append({"timer": timer, "T": t_len})
         if out_g is not out:
             out.narrow(batch_axis, b0, bg).copy_(out_g)
     return len(groups)
