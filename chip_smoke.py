@@ -60,7 +60,12 @@ non-zero without printing a result:
                groups), in f32 and bf16, must give bit-identical results
                on two calls, and are timed whole and split: the forward's
                step into its barrier wait, h load, product and gate math
-               (clock64 spans), the backward into the GEMM and the loop.
+               (clock64 spans), the backward into the GEMM and the loop,
+               and the loop's step into its hg wait, gate math, barrier
+               wait, dhg wait and product (clock64 spans; bwd_split).
+               Then bwd_times: K1b, K4b and K5b per call at B=32, 128
+               and past one plan's rows, K1b at D=1, each with its loop's
+               step split.
                With the forward plan's row limit set to 7, B=20 runs in 3
                row groups, one launch each, equal bit for bit to one
                launch.
@@ -576,10 +581,9 @@ BWD_TIME_CASES = (
 def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
               device: str = "cuda") -> list:
     """The ``bwd_split`` phase: for each of ``cases`` the backward call's
-    time (CUDA events around 10 calls), its loop's (``bwd_events``), the
-    loop's step split scaled to that time (``bwd_split``, 3 calls), and
-    each row group's cluster size where the checkout's plan has one. One
-    JSON line a case, tagged ``label``, also appended to
+    time (CUDA events around 10 calls), its loop's (``bwd_events``) and
+    the loop's step split scaled to that time (``bwd_split``, 3 calls).
+    One JSON line a case, tagged ``label``, also appended to
     ``chiprun_out/bwd_times.jsonl``; the tpuasr_torch imported is the first
     on sys.path (the ``--time-bwd`` mode times another checkout this way)."""
     import torch
@@ -599,16 +603,16 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
             ys, cs = lstm_mod.bilstm_forward(xg, w_h, b_h, mask)
             dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
             args = (xg, w_h, b_h, mask, gru_mod.shift_time(ys), gru_mod.shift_time(cs), cs, dy)
-            fn, lib = lstm_mod.bilstm_backward, "bilstm_bwd"
+            fn = lstm_mod.bilstm_backward
         else:
             ys = gru_mod.bigru_forward(xg, w_h, b_h, mask)
             dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
             if kind == "gru2":
                 args = (*gate_major(xg, w_h, b_h), mask, gru_mod.shift_time(ys), dy)
-                fn, lib = gru2_mod.bigru2_backward, "bigru2_bwd"
+                fn = gru2_mod.bigru2_backward
             else:
                 args = (xg, w_h, b_h, mask, gru_mod.shift_time(ys), dy)
-                fn, lib = gru_mod.bigru_backward, "bigru_bwd"
+                fn = gru_mod.bigru_backward
         ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
         gru_mod.bwd_events = []
         try:
@@ -624,9 +628,6 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
         row = {"label": label, "kind": kind, "shape": [t, nd, b, 800], "ms": ms,
                "loop_ms": loop_ms, "hg_gemm_ms": hg_ms, "row_groups": calls,
                "split": split_us(bwd_split(lambda: fn(*args), reps=3), loop_ms)}
-        if hasattr(gru_mod, "bwd_plans"):
-            row["clusters"] = [plan.cluster for _, plan in
-                               gru_mod.bwd_plans(lib, g, nd, b, 800, 2, dev)]
         emit("bwd_split", **row, nvidia_smi=smi)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -4035,6 +4036,7 @@ def main() -> int:
     ctc_times(smi)  # ctc_split: K2a's and K2b's step split at both buckets
     k4_err, k4_timings = phase_kernel_lstm()
     k5_err, k5_timings = phase_kernel_gru2()
+    bwd_times(smi)  # bwd_split: the backward loops' step split and cluster sizes
     phase_fwd_row_groups()
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)

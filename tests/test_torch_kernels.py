@@ -342,6 +342,9 @@ BWD_EDGE_CASES = [  # (T, B, H, D, lengths): the backward's plan at its edges
     pytest.param(6, 1, 100, 2, None, id="B1"),
     pytest.param(6, 9, 100, 2, [0] * 9, id="all-len0"),  # every frame masked
     pytest.param(4, 9, 48, 1, None, id="D1"),
+    pytest.param(5, 32, 800, 2, None, id="B32-H800"),  # the flagship's width
+    pytest.param(4, 128, 800, 2, None, id="B128-H800"),  # four row tiles
+    pytest.param(5, 32, 800, 1, None, id="D1-H800"),
 ]
 
 

@@ -28,12 +28,12 @@
 //          sum_c dhg[t % 2][d, b, c] w_h[d, k, c] + direct[b, k]. Each warp
 //          streams a contiguous range of dhg's columns from L2 into
 //          registers with ld.global.cg (L1 is not coherent across blocks),
-//          BW_PREFETCH k-steps ahead; the 8 ranges' partial sums meet in
-//          shared memory in range order. bf16 weights: tensor cores with
-//          the pinned rows as A and dhg's hi and lo halves as B, two
-//          products into f32 accumulators, so the product of the
-//          unrounded f32 dhg is kept to ~2^-16 relative; f32 weights: f32
-//          FMAs.
+//          16 bytes a lane (put_dhg's units), BW_PREFETCH k-steps ahead;
+//          the 8 ranges' partial sums meet in shared memory in range
+//          order. bf16 weights: tensor cores with the pinned rows as A and
+//          dhg's hi and lo halves as B, two products into f32
+//          accumulators, so the product of the unrounded f32 dhg is kept
+//          to ~2^-16 relative; f32 weights: f32 FMAs.
 //    The double buffer on t % 2 makes one barrier a step enough: a block
 //    writes dhg[t % 2] again at step t - 2 only after the barrier of step
 //    t - 1, which every block passes after its part (b) of step t.
@@ -334,13 +334,19 @@ constexpr int BW_PREFETCH = 3;  // k-steps of dhg a warp has in flight
 
 // Column c of a row of the step's dhg buffer. f32 weights: the f32 value.
 // bf16 weights: its bf16 hi = rn(v) and lo = rn(v - hi), stored so that
-// the 8 bytes of columns (2i, 2i + 1) are {hi pair, lo pair}: one 8-byte
-// load gives a thread both halves of an m16n8k16 B register. Each value
-// is split once, by the block that owns it, not by every reader.
+// the 8 bytes of columns (2i, 2i + 1) are {hi pair, lo pair}, and the 16
+// bytes of lane tq's unit of a k-step (columns k0 .. k0 + 15) are the
+// pairs of columns k0 + 2tq and k0 + 8 + 2tq: one 16-byte load gives a
+// thread both B registers of an m16n8k16 product, of hi and of lo. Each
+// value is split once, by the block that owns it, not by every reader.
+__device__ __forceinline__ int dhg_pair(int i) {  // where pair i lies in its row
+  const int j = i & 7;
+  return (i & ~7) | ((j & 3) << 1) | (j >> 2);
+}
 template <typename T>
 __device__ __forceinline__ void put_dhg(float* row, int c, float v) {
   if constexpr (sizeof(T) == 2) {
-    __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(row) + (c >> 1) * 4 + (c & 1);
+    __nv_bfloat16* p = reinterpret_cast<__nv_bfloat16*>(row) + dhg_pair(c >> 1) * 4 + (c & 1);
     const __nv_bfloat16 hi = __float2bfloat16_rn(v);
     p[0] = hi;
     p[2] = __float2bfloat16_rn(v - __bfloat162float(hi));
@@ -355,10 +361,10 @@ __device__ __forceinline__ void put_dhg(float* row, int c, float v) {
 // f32 dhg, (B, GP)), the sum over k-steps kb .. ke - 1 (16 columns each)
 // of w_h[k, c] dhg[b, c], written to red[u * BW_ROWS + row]. A: the
 // pinned rows (or L2 past L.pinned); B: dhg's bf16 hi and lo halves
-// (put_dhg), read from L2 by __ldcg (ld.global.cg, BW_PREFETCH k-steps
-// ahead), each multiplied into its own f32 accumulators. PINNED: all
-// 16 rows are in shared memory (the flagship case), so the loop has no
-// L2 path to skip. wait: null, or the timer's sum of clock64 cycles spent
+// (put_dhg), read from L2 by __ldcg (ld.global.cg, 16 bytes a lane and
+// k-step, BW_PREFETCH k-steps ahead), each multiplied into its own f32
+// accumulators. PINNED: all 16 rows are in shared memory (the flagship
+// case), so the loop has no L2 path to skip. wait: null, or the timer's sum of clock64 cycles spent
 // waiting for each k-step's words before its product.
 template <typename T, bool PINNED>
 __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int r0,
@@ -370,22 +376,21 @@ __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int 
   const bool pa = PINNED || ra < L.pinned, pb = PINNED || rb < L.pinned;
   const T* wa = w_s + static_cast<size_t>(ra) * L.ws;
   const T* wb = w_s + static_cast<size_t>(rb) * L.ws;
-  const float* rowp[4];  // this lane's B rows: b0 + nt * 8 + gq
+  const float* rowp[4];  // this lane's B rows (b0 + nt * 8 + gq) at its unit
   bool rok[4];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int b = b0 + nt * 8 + gq;
     rok[nt] = b < B;
-    rowp[nt] = dg_d + static_cast<size_t>(rok[nt] ? b : 0) * GP + tq * 2;
+    rowp[nt] = dg_d + static_cast<size_t>(rok[nt] ? b : 0) * GP + tq * 4;
   }
-  auto load = [&](int ks, uint2 (&bb)[4][2]) {
+  // bb[nt]: this lane's unit of k-step ks of row nt (put_dhg): {hi, lo} of
+  // columns 2tq, 2tq + 1, then {hi, lo} of columns 2tq + 8, 2tq + 9
+  auto load = [&](int ks, uint4 (&bb)[4]) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const uint2 zero = make_uint2(0u, 0u);
-      const float* p = rowp[nt] + ks * 16;
-      bb[nt][0] = rok[nt] ? __ldcg(reinterpret_cast<const uint2*>(p)) : zero;
-      bb[nt][1] = rok[nt] ? __ldcg(reinterpret_cast<const uint2*>(p + 8)) : zero;
-    }
+    for (int nt = 0; nt < 4; ++nt)
+      bb[nt] = rok[nt] ? __ldcg(reinterpret_cast<const uint4*>(rowp[nt] + ks * 16))
+                       : make_uint4(0u, 0u, 0u, 0u);
   };
   auto frag = [&](bool pinned, const T* wrow, int k, int c) -> uint32_t {
     if (PINNED || pinned) return *reinterpret_cast<const uint32_t*>(wrow + c);
@@ -396,26 +401,24 @@ __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int 
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc_h[nt][q] = acc_l[nt][q] = 0.0f;
-  auto compute = [&](int ks, const uint2 (&bb)[4][2]) {
+  auto compute = [&](int ks, const uint4 (&bb)[4]) {
     const int c = ks * 16 + tq * 2;
     const uint32_t a0 = frag(pa, wa, k0 + gq, c), a1 = frag(pb, wb, k0 + gq + 8, c);
     const uint32_t a2 = frag(pa, wa, k0 + gq, c + 8), a3 = frag(pb, wb, k0 + gq + 8, c + 8);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      mma_bf16(acc_h[nt], a0, a1, a2, a3, bb[nt][0].x, bb[nt][1].x);
-      mma_bf16(acc_l[nt], a0, a1, a2, a3, bb[nt][0].y, bb[nt][1].y);
+      mma_bf16(acc_h[nt], a0, a1, a2, a3, bb[nt].x, bb[nt].z);
+      mma_bf16(acc_l[nt], a0, a1, a2, a3, bb[nt].y, bb[nt].w);
     }
   };
   // the timer's wait: the second clock read is predicated on every word of
   // the k-step, so it cannot issue before they have landed (where their
   // XOR happens to equal the constant, the k-step counts no wait)
-  auto landed = [&](const uint2 (&bb)[4][2]) {
+  auto landed = [&](const uint4 (&bb)[4]) {
     const long long c0 = clock64();
     uint32_t sink = 0;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) sink ^= bb[nt][h].x ^ bb[nt][h].y;
+    for (int nt = 0; nt < 4; ++nt) sink ^= bb[nt].x ^ bb[nt].y ^ bb[nt].z ^ bb[nt].w;
     long long c1;
     asm volatile(
         "{\n\t.reg .pred p;\n\t"
@@ -426,7 +429,7 @@ __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int 
         : "r"(sink), "l"(c0), "r"(0x9e3779b9u));
     *wait += c1 - c0;
   };
-  uint2 buf[BW_PREFETCH][4][2];
+  uint4 buf[BW_PREFETCH][4];
 #pragma unroll
   for (int s = 0; s < BW_PREFETCH; ++s)
     if (kb + s < ke) load(kb + s, buf[s]);
