@@ -474,9 +474,9 @@ def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     """A backward kernel's time at (T, B, H, D) bf16: the whole call, its
     two launches apart (CUDA events around the hg GEMM and the
     persistent loop, means of 10 calls), the loop's step split
-    (``bwd_split`` over 3 calls, scaled to the untimed loop), the plain loop, cuDNN's backward
-    (median and range over 5 separate timings of 10 calls: it swings
-    between calls) and the bound."""
+    (``bwd_split`` over 3 calls, scaled to the untimed loop), the plain
+    loop, cuDNN's backward (median and range over 5 separate timings of
+    10 calls: it swings between calls) and the bound."""
     import torch
 
     import tpuasr_torch.ops.gru as gru_mod
@@ -551,8 +551,8 @@ def fwd_split(run, reps: int = 1):
 def bwd_split(run, reps: int = 1):
     """The backward loop's step split (``step_split`` of ``bwd_parts``):
     the wait for the step's hg, the gate math, the barrier wait, the wait
-    for dhg (the L2 stream's words, or the cluster's staged chunks), the
-    rest of the carry product with its reduction. While the timer is on
+    for dhg's words from L2, the rest of the carry product with its
+    reduction. While the timer is on
     every warp waits for a k-step's words before its product."""
     return step_split("bwd_parts", "BWD_PARTS", run, reps)
 
@@ -4036,7 +4036,7 @@ def main() -> int:
     ctc_times(smi)  # ctc_split: K2a's and K2b's step split at both buckets
     k4_err, k4_timings = phase_kernel_lstm()
     k5_err, k5_timings = phase_kernel_gru2()
-    bwd_times(smi)  # bwd_split: the backward loops' step split and cluster sizes
+    bwd_times(smi)  # bwd_split: the backward loops' times and step split
     phase_fwd_row_groups()
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)

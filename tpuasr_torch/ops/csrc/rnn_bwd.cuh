@@ -364,8 +364,9 @@ __device__ __forceinline__ void put_dhg(float* row, int c, float v) {
 // (put_dhg), read from L2 by __ldcg (ld.global.cg, 16 bytes a lane and
 // k-step, BW_PREFETCH k-steps ahead), each multiplied into its own f32
 // accumulators. PINNED: all 16 rows are in shared memory (the flagship
-// case), so the loop has no L2 path to skip. wait: null, or the timer's sum of clock64 cycles spent
-// waiting for each k-step's words before its product.
+// case), so the loop has no L2 path to skip. wait: null, or the timer's
+// sum of clock64 cycles spent waiting for each k-step's words before its
+// product.
 template <typename T, bool PINNED>
 __device__ __forceinline__ void carry_mma(const T* w_s, const BwdLayout& L, int r0,
                                           const T* w_d, WLayout wl, int k0, int H, int G,
@@ -706,7 +707,7 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
         __syncthreads();
       }
     }
-    clk[3] += wait;
+    clk[3] += wait;  // the dhg wait is a part of its own, out of the product's span
     lap(c0, 4);
     clk[4] -= wait;
   }
