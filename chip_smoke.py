@@ -584,8 +584,9 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
     time (CUDA events around 10 calls), its loop's (``bwd_events``) and
     the loop's step split scaled to that time (``bwd_split``, 3 calls).
     One JSON line a case, tagged ``label``, also appended to
-    ``chiprun_out/bwd_times.jsonl``; the tpuasr_torch imported is the first
-    on sys.path (the ``--time-bwd`` mode times another checkout this way)."""
+    ``build/chip_smoke/bwd_times.jsonl``; the tpuasr_torch imported is the
+    first on sys.path (the ``--time-bwd`` mode times another checkout this
+    way)."""
     import torch
 
     import tpuasr_torch.ops.gru as gru_mod
@@ -629,8 +630,8 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
                "loop_ms": loop_ms, "hg_gemm_ms": hg_ms, "row_groups": calls,
                "split": split_us(bwd_split(lambda: fn(*args), reps=3), loop_ms)}
         emit("bwd_split", **row, nvidia_smi=smi)
-        out = ROOT / "chiprun_out"
-        out.mkdir(exist_ok=True)
+        out = ROOT / "build" / "chip_smoke"
+        out.mkdir(parents=True, exist_ok=True)
         with open(out / "bwd_times.jsonl", "a") as f:
             f.write(json.dumps({**row, "nvidia_smi": smi}) + "\n")
         rows.append(row)
