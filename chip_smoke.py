@@ -12,7 +12,10 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU:
 (``python3 chip_smoke.py --time-beam WORK LABEL [ROOT]`` only times the
 device-beam path from a work directory a full run left: time_beam_path.
 ``--time-bwd LABEL [ROOT]`` only times the backward kernels and splits
-their loop's step (bwd_times), with the tpuasr_torch of ROOT if given.
+their loop's step (bwd_times), with the tpuasr_torch of ROOT if given;
+``--time-rnn LABEL [ROOT]`` times the forward kernels K1f, K4f and K6f
+(fwd_times) and then runs bwd_times, and prints the RNN libraries'
+registers and spills.
 ``python3 chip_smoke.py --stream-only`` runs phase 10 alone, on a corpus
 and word LM of its own, and prints no result line; ``--dist-only`` does
 the same for phase 13. ``--dist-worker SPEC --rank R --world-size N
@@ -63,9 +66,13 @@ non-zero without printing a result:
                (clock64 spans), the backward into the GEMM and the loop,
                and the loop's step into its hg wait, gate math, barrier
                wait, dhg wait and product (clock64 spans; bwd_split).
-               Then bwd_times: K1b, K4b and K5b per call at B=32, 128
-               and past one plan's rows, K1b at D=1, each with its loop's
-               step split.
+               Then K6f and K6b (the vanilla tanh RNN, one gate) at B=32,
+               H=1280, D=2, bf16, T'=251 and 826, with D=1, f32 edges and
+               the plan's edges above, each also through BiRNNFunction,
+               timed and split beside cuDNN's nn.RNN (tanh). Then
+               bwd_times: K1b, K4b and K5b per call at B=32, 128 and past
+               one plan's rows, K1b at D=1, K6b at H=1280 (D=2 and 1),
+               each with its loop's step split.
                With the forward plan's row limit set to 7, B=20 runs in 3
                row groups, one launch each, equal bit for bit to one
                launch.
@@ -226,7 +233,7 @@ non-zero without printing a result:
                and cli.test --decoder greedy on rank 0's checkpoint. Step
                times of two ranks on one card are the shared card's, not
                a speed-up.
- 14. a {"kernels": [...]} line (all nine kernels, launches by path and
+ 14. a {"kernels": [...]} line (all eleven kernels, launches by path and
      by rank on the distributed paths, the RNN kernels' D=1 times beside
      them), then the nvidia-smi line, then the last line {"ok": true,
      "device": {...}}.
@@ -416,15 +423,16 @@ def rnn_bound(t, b, h, nd, itemsize, n_gates=3, backward=False):
 
 
 def cudnn_rnn(xg, w_h, b_h, n_gates=3):
-    """nn.GRU (n_gates 3) or nn.LSTM (4), bidirectional, with the same
-    recurrent weights (PyTorch's gate orders are the port's) and its
-    input of an H-wide ``x``; it also runs its own input projection
-    (x @ W_ih). A yardstick only: the port never calls it."""
+    """nn.GRU (n_gates 3), nn.LSTM (4) or nn.RNN with tanh (1),
+    bidirectional, with the same recurrent weights (PyTorch's gate
+    orders are the port's) and its input of an H-wide ``x``; it also runs
+    its own input projection (x @ W_ih). A yardstick only: the port never
+    calls it."""
     import torch
 
     t, nd, b, gh = xg.shape
     h = gh // n_gates
-    cls = torch.nn.LSTM if n_gates == 4 else torch.nn.GRU
+    cls = {1: torch.nn.RNN, 3: torch.nn.GRU, 4: torch.nn.LSTM}[n_gates]
     rnn = cls(h, h, bidirectional=nd == 2).to(device=xg.device, dtype=xg.dtype)
     with torch.no_grad():
         for d in range(nd):
@@ -470,6 +478,15 @@ def cudnn_rnn_bwd_ms(xg, w_h, b_h, iters, n_gates=3):
     return time_ms(fwd_bwd, iters) - time_ms(fwd, iters)
 
 
+def tanh_bound(t, b, h, nd, backward=False):
+    """K6f's or K6b's least time in bf16: the benchmark's count
+    (``benchmark/lib/bounds_rnn.py``: one H x H product a step and
+    direction, no recompute credited)."""
+    from benchmark.lib.bounds_rnn import tanh_rnn_bound
+
+    return tanh_rnn_bound(t, b, h, nd, 2, backward=backward)
+
+
 def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     """A backward kernel's time at (T, B, H, D) bf16: the whole call, its
     two launches apart (CUDA events around the hg GEMM and the
@@ -493,7 +510,8 @@ def bwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     split = {k: sum(e[k][0].elapsed_time(e[k][1]) for e in events) / len(events)
              if events else None for k in ("hg", "loop")}  # no events: a CPU rehearsal
     lib = sorted(cudnn_rnn_bwd_ms(*lib_args, iters=10, n_gates=n_gates) for _ in range(5))
-    bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=n_gates, backward=True)
+    bound_ms, bound_by = (tanh_bound(t, b, h, nd, backward=True) if n_gates == 1 else
+                          rnn_bound(t, b, h, nd, 2, n_gates=n_gates, backward=True))
     return {"shape": [t, nd, b, h], "dtype": "bfloat16", "ms": ms,
             "hg_gemm_ms": split["hg"], "loop_ms": split["loop"],
             "loop_split": (split_us(bwd_split(lambda: fn(*args), reps=3), split["loop"])
@@ -569,13 +587,26 @@ def split_us(split, kernel_ms: float):
 
 # (kind, T', B, D) of the bwd_split phase: K1b and K4b at both buckets,
 # K1b with one direction, K5b, then each at B=128 and past one plan's
-# rows (row groups: B=448 for the GRUs, 320 for the LSTM, at T'=51)
+# rows (row groups: B=448 for the GRUs, 320 for the LSTM, at T'=51); then
+# K6b (the vanilla RNN, H=1280, where the others run H=800) at both
+# buckets and with one direction
 BWD_TIME_CASES = (
     ("gru", 251, 32, 2), ("gru", 826, 32, 2), ("lstm", 251, 32, 2), ("lstm", 826, 32, 2),
     ("gru", 251, 32, 1), ("gru", 826, 32, 1), ("gru2", 251, 32, 2),
     ("gru", 251, 128, 2), ("lstm", 251, 128, 2), ("gru2", 251, 128, 2),
     ("gru", 51, 448, 2), ("lstm", 51, 320, 2), ("gru2", 51, 448, 2),
+    ("rnn", 251, 32, 2), ("rnn", 826, 32, 2), ("rnn", 251, 32, 1),
 )
+RNN_WIDTH = {"rnn": 1280}  # hidden size of a kind's timing cases; 800 otherwise
+KIND_GATES = {"gru": 3, "gru2": 3, "lstm": 4, "rnn": 1}
+
+
+def has_kind(kind: str) -> bool:
+    """Whether the tpuasr_torch imported has the kernels of ``kind`` (a
+    parent checkout may lack the vanilla RNN's)."""
+    import importlib.util
+
+    return kind != "rnn" or importlib.util.find_spec("tpuasr_torch.ops.birnn") is not None
 
 
 def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
@@ -586,7 +617,7 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
     One JSON line a case, tagged ``label``, also appended to
     ``build/chip_smoke/bwd_times.jsonl``; the tpuasr_torch imported is the
     first on sys.path (the ``--time-bwd`` mode times another checkout this
-    way)."""
+    way; cases of a kind it lacks are left out)."""
     import torch
 
     import tpuasr_torch.ops.gru as gru_mod
@@ -596,11 +627,20 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
     dev = torch.device(device)
     rows = []
     for kind, t, b, nd in cases:
-        g = 4 if kind == "lstm" else 3
-        xg, w_h, b_h, mask = gru_case(t, b, 800, nd, torch.bfloat16, seed=0, device=dev,
-                                      n_gates=g)
+        if not has_kind(kind):
+            continue
+        h = RNN_WIDTH.get(kind, 800)
+        xg, w_h, b_h, mask = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=dev,
+                                      n_gates=KIND_GATES[kind])
         gen = torch.Generator(device=dev).manual_seed(1)
-        if kind == "lstm":
+        if kind == "rnn":
+            import tpuasr_torch.ops.birnn as birnn_mod
+
+            ys = birnn_mod.birnn_forward(xg, w_h, b_h, mask)
+            dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
+            args = (w_h, mask, ys, dy)
+            fn = birnn_mod.birnn_backward
+        elif kind == "lstm":
             ys, cs = lstm_mod.bilstm_forward(xg, w_h, b_h, mask)
             dy = (0.1 * torch.randn(ys.shape, generator=gen, device=dev)).to(torch.bfloat16)
             args = (xg, w_h, b_h, mask, gru_mod.shift_time(ys), gru_mod.shift_time(cs), cs, dy)
@@ -626,15 +666,61 @@ def bwd_times(smi: str, label: str = "tree", cases=BWD_TIME_CASES,
         calls = len(events) / 10  # row groups a call
         loop_ms = sum(e["loop"][0].elapsed_time(e["loop"][1]) for e in events) / 10
         hg_ms = sum(e["hg"][0].elapsed_time(e["hg"][1]) for e in events) / 10
-        row = {"label": label, "kind": kind, "shape": [t, nd, b, 800], "ms": ms,
+        row = {"label": label, "kind": kind, "shape": [t, nd, b, h], "ms": ms,
                "loop_ms": loop_ms, "hg_gemm_ms": hg_ms, "row_groups": calls,
                "split": split_us(bwd_split(lambda: fn(*args), reps=3), loop_ms)}
-        emit("bwd_split", **row, nvidia_smi=smi)
-        out = ROOT / "build" / "chip_smoke"
-        out.mkdir(parents=True, exist_ok=True)
-        with open(out / "bwd_times.jsonl", "a") as f:
-            f.write(json.dumps({**row, "nvidia_smi": smi}) + "\n")
-        rows.append(row)
+        rows.append(record("bwd_split", "bwd_times.jsonl", row, smi))
+    return rows
+
+
+def record(phase: str, file_name: str, row: dict, smi: str) -> dict:
+    """Emit ``row`` as a ``phase`` line and append it to
+    ``build/chip_smoke/<file_name>``, both with the nvidia-smi line."""
+    emit(phase, **row, nvidia_smi=smi)
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / file_name, "a") as f:
+        f.write(json.dumps({**row, "nvidia_smi": smi}) + "\n")
+    return row
+
+
+# (kind, T', B, D) of the forward times: K1f, K4f and K6f at both buckets
+FWD_TIME_CASES = (
+    ("gru", 251, 32, 2), ("gru", 826, 32, 2), ("lstm", 251, 32, 2), ("lstm", 826, 32, 2),
+    ("rnn", 251, 32, 2), ("rnn", 826, 32, 2),
+)
+
+
+def fwd_times(smi: str, label: str = "tree", cases=FWD_TIME_CASES,
+              device: str = "cuda") -> list:
+    """The forward kernels' time per call (CUDA events around 10 calls)
+    for each of ``cases``, with the step split scaled to it
+    (``fwd_split``, 3 calls). One JSON line a case, tagged ``label``, also
+    appended to ``build/chip_smoke/fwd_times.jsonl``; the tpuasr_torch
+    imported is the first on sys.path, as in ``bwd_times``."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+    import tpuasr_torch.ops.lstm as lstm_mod
+
+    dev = torch.device(device)
+    rows = []
+    for kind, t, b, nd in cases:
+        if not has_kind(kind):
+            continue
+        h = RNN_WIDTH.get(kind, 800)
+        args = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=dev,
+                        n_gates=KIND_GATES[kind])
+        if kind == "rnn":
+            import tpuasr_torch.ops.birnn as birnn_mod
+
+            fn = birnn_mod.birnn_forward
+        else:
+            fn = lstm_mod.bilstm_forward if kind == "lstm" else gru_mod.bigru_forward
+        ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
+        row = {"label": label, "kind": kind, "shape": [t, nd, b, h], "ms": ms,
+               "split": split_us(fwd_split(lambda: fn(*args), reps=3), ms)}
+        rows.append(record("fwd_time", "fwd_times.jsonl", row, smi))
     return rows
 
 
@@ -646,7 +732,8 @@ def fwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     calls: it swings between calls) and the bound."""
     ms = time_ms(lambda: fn(*args), iters=10, warmup=2)
     lib = sorted(cudnn_rnn_ms(*lib_args, iters=10, n_gates=n_gates) for _ in range(5))
-    bound_ms, bound_by = rnn_bound(t, b, h, nd, 2, n_gates=n_gates)
+    bound_ms, bound_by = (tanh_bound(t, b, h, nd) if n_gates == 1 else
+                          rnn_bound(t, b, h, nd, 2, n_gates=n_gates))
     return {"shape": [t, nd, b, h], "dtype": "bfloat16", "ms": ms,
             "split": split_us(fwd_split(lambda: fn(*args), reps=3), ms),
             "plain_ms": time_ms(lambda: plain(*args), iters=2),
@@ -741,10 +828,14 @@ def plain_versions(on: bool = True):
     import tpuasr_torch.ops.gru2 as gru2_mod
     import tpuasr_torch.ops.lstm as lstm_mod
 
+    import tpuasr_torch.ops.birnn as birnn_mod
+
     if not on:
         yield
         return
-    with mock.patch.multiple(gru_mod, bigru_forward=gru_mod.bigru_reference,
+    with mock.patch.multiple(birnn_mod, birnn_forward=birnn_mod.birnn_reference,
+                             birnn_backward=birnn_mod.birnn_backward_reference), \
+            mock.patch.multiple(gru_mod, bigru_forward=gru_mod.bigru_reference,
                              bigru_backward=gru_mod.bigru_backward_reference), \
             mock.patch.multiple(gru2_mod, bigru2_forward=gru2_mod.bigru2_reference,
                                 bigru2_backward=gru2_mod.bigru2_backward_reference), \
@@ -1041,6 +1132,83 @@ def phase_kernel_gru2(device="cuda", cases=NEW_RNN_CASES + BWD_EDGE_CASES + FWD_
     first = rows[0]
     return ({"bigru2_fwd": first["ys"]["max_abs_err"],
              "bigru2_bwd": first["dg"]["max_abs_err"]}, timings)
+
+
+# K6's cases: the cell's width (B=32, H=1280, D=2, bf16) at both buckets,
+# D=1 and an f32 edge at that width, then the plan's edges (the flagship
+# cases hold a length-0 row)
+RNN_CASES = [
+    ("cell-5s-bf16", 251, 32, 1280, 2, "bfloat16", None),
+    ("cell-16.5s-bf16", 826, 32, 1280, 2, "bfloat16", None),
+    ("D1-bf16", 251, 32, 1280, 1, "bfloat16", None),
+    ("T7-f32", 7, 32, 1280, 2, "float32", None),
+    ("T1-B1-f32", 1, 1, 1280, 2, "float32", [1]),
+    *BWD_EDGE_CASES, *FWD_EDGE_CASES,
+]
+# (T, B, H, D) of K6's times, bf16: the 5 s and 16.5 s buckets, and D=1
+RNN_TIMING_SHAPES = ((251, 32, 1280, 2), (826, 32, 1280, 2), (251, 32, 1280, 1),
+                     (826, 32, 1280, 1))
+
+
+def phase_kernel_rnn(device="cuda", cases=RNN_CASES, timing_shapes=RNN_TIMING_SHAPES):
+    """K6f and K6b (the vanilla tanh RNN) against their plain loops, each
+    bit-identical over two calls and with one launch a call, the whole
+    BiRNNFunction against plain forward + backward, then times and step
+    splits beside cuDNN's nn.RNN (tanh) and the bounds. ``device``,
+    ``cases`` and ``timing_shapes`` other than the defaults only rehearse
+    the phase on the CPU."""
+    import torch
+
+    from tpuasr_torch.ops.birnn import (
+        BiRNNFunction,
+        birnn_backward,
+        birnn_backward_reference,
+        birnn_forward,
+        birnn_reference,
+    )
+
+    cuda = torch.device(device)
+    rows = []
+    for i, (name, t, b, h, nd, dt, lengths) in enumerate(cases):
+        dtype = getattr(torch, dt)
+        args = gru_case(t, b, h, nd, dtype, seed=60 + i, device=cuda, n_gates=1,
+                        lengths=lengths)
+        before = (birnn_forward.launches, birnn_backward.launches)
+        ys = birnn_forward(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(ys, birnn_forward(*args)), f"birnn_fwd {name}: two calls differ")
+        ys_p = birnn_reference(*args)
+        fwd = check_fwd(f"birnn_fwd {name}", ys, ys_p, dt)
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        dy = torch.randn(ys.shape, generator=gen, device=cuda).to(dtype)
+        bwd_args = (args[1], args[3], ys_p, dy)
+        dpre = birnn_backward(*bwd_args)
+        torch.cuda.synchronize()
+        bwd = check_bwd(f"birnn_bwd {name}", dpre, birnn_backward_reference(*bwd_args), dt)
+        check(torch.equal(dpre, birnn_backward(*bwd_args)), f"birnn_bwd {name}: two calls differ")
+        if cuda.type == "cuda":
+            check((birnn_forward.launches - before[0], birnn_backward.launches - before[1])
+                  == (2, 2), f"birnn {name}: one launch a call")
+        fn_err = function_vs_plain(BiRNNFunction.apply, *args, dy, dt)
+        rows.append({"case": name, "shape": [t, nd, b, h], "dtype": dt, "ys": fwd,
+                     "dpre": bwd, "function_rel_norm_err": fn_err})
+        emit("kernel", kernel="birnn", **rows[-1])
+
+    timings = {"birnn_fwd": [], "birnn_bwd": []}
+    for t, b, h, nd in timing_shapes:
+        args = gru_case(t, b, h, nd, torch.bfloat16, seed=0, device=cuda, n_gates=1)
+        ys = birnn_reference(*args)
+        dy = (0.1 * torch.randn(ys.shape, device=cuda)).to(torch.bfloat16)
+        bwd_args = (args[1], args[3], ys, dy)
+        timings["birnn_fwd"].append(fwd_timing(birnn_forward, birnn_reference, args, args[:3],
+                                               t, b, h, nd, n_gates=1))
+        emit("kernel_time", kernel="birnn_fwd", **timings["birnn_fwd"][-1])
+        timings["birnn_bwd"].append(bwd_timing(birnn_backward, birnn_backward_reference,
+                                               bwd_args, args[:3], t, b, h, nd, n_gates=1))
+        emit("kernel_time", kernel="birnn_bwd", **timings["birnn_bwd"][-1])
+    first = rows[0]
+    return ({"birnn_fwd": first["ys"]["max_abs_err"], "birnn_bwd": first["dpre"]["max_abs_err"]},
+            timings)
 
 
 CTC_SHAPES = ((251, 130), (826, 418))  # (T', label cap): the 5 s and 16.5 s buckets, S 261, 837
@@ -3999,6 +4167,17 @@ def main() -> int:
         sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
         bwd_times(nvidia_smi_line(), label=sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--time-rnn"]:  # LABEL [ROOT]: the forward times, then bwd_times
+        sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
+        smi = nvidia_smi_line()
+        fwd_times(smi, label=sys.argv[2])
+        bwd_times(smi, label=sys.argv[2])
+        from tpuasr_torch.ops import _build
+        for n, info in sorted(_build.build_info.items()):
+            emit("build", label=sys.argv[2], kernel=n,
+                 ptxas=[ln.strip() for ln in info["log"].splitlines()
+                        if "registers" in ln or "spill" in ln])
+        return 0
     if sys.argv[1:2] == ["--time-beam"]:  # WORK LABEL [ROOT]
         sys.path.insert(0, sys.argv[4] if len(sys.argv) > 4 else str(ROOT))
         time_beam_path(Path(sys.argv[2]), sys.argv[3], nvidia_smi_line())
@@ -4029,7 +4208,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
     build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd",
-               "bigru2_fwd", "bigru2_bwd"])
+               "bigru2_fwd", "bigru2_bwd", "birnn_fwd", "birnn_bwd"])
 
     k1f_row, k1f_timings = phase_kernel()
     k1b_row, k1b_timings = phase_kernel_bwd()
@@ -4037,6 +4216,7 @@ def main() -> int:
     ctc_times(smi)  # ctc_split: K2a's and K2b's step split at both buckets
     k4_err, k4_timings = phase_kernel_lstm()
     k5_err, k5_timings = phase_kernel_gru2()
+    k6_err, k6_timings = phase_kernel_rnn()
     bwd_times(smi)  # bwd_split: the backward loops' times and step split
     phase_fwd_row_groups()
     train_res, out, paths = phase_train(smi, name)
@@ -4146,6 +4326,11 @@ def main() -> int:
                      timings=k5_timings["bigru2_bwd"], launches_by_rank=by_rank("bigru2_backward"),
                      max_abs_err_d1=dist_res["k5_d1"]["max_abs_err"]["bigru2_backward"],
                      timings_d1=dist_res["k5_d1"]["timings"]["bigru2_backward"], card=smi),
+        # K6 replaces no TPU kernel, and no path of this run launches it
+        # (the benchmark's ds2_birnn1280.train_rnn cell does)
+        *(kernel_entry(k, "none: tpuasr runs the vanilla RNN as a lax.scan", k6_err[k],
+                       k6_timings[k][0], {}, timings=k6_timings[k], card=smi)
+          for k in ("birnn_fwd", "birnn_bwd")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,6 +22,11 @@ Gate-major BiGRU (K5): the BiGRU's tolerances against its plain
 version, and bit-equal to K1 on the relaid-out inputs (the same
 compiled body with other strides).
 
+Vanilla tanh RNN (K6f, K6b): the BiGRU's tolerances, for the same
+reasons (h carried rounded to bf16; the backward reads the same rounded
+ys as its plain version and rounds only its emitted d(pre); another f32
+summation order).
+
 CTC alpha and beta: alphas within rel 1e-5 of the plain recursion on
 frames where they are finite, dL/demit within 2e-4 absolute
 (tests/test_pallas_ctc.py's loss and gradient tolerances); the kernels
@@ -57,6 +62,14 @@ from tpuasr_torch.ops.ctc import (
     ctc_alpha_reference,
     ctc_beta,
     ctc_beta_reference,
+)
+from tpuasr_torch.ops import birnn as birnn_mod
+from tpuasr_torch.ops.birnn import (
+    BiRNNFunction,
+    birnn_backward,
+    birnn_backward_reference,
+    birnn_forward,
+    birnn_reference,
 )
 from tpuasr_torch.ops.gru import (
     BWD_LAUNCHES,
@@ -561,6 +574,107 @@ def test_backward_kernels_past_one_plan_run_in_row_groups(n_gates, b, dtype,
     assert fn.launches == before + 2 * BWD_LAUNCHES
     want = plain(*bwd)
     _assert_close(got, want, dtype, want.float().abs().max().item())
+
+
+def _rnn_args(device, t, b, h, nd, dtype, seed=14, lengths=None):
+    rng = np.random.RandomState(seed)
+    xg, w_h, b_h, mask = [torch.from_numpy(a).to(device) for a in
+                          gru_inputs(rng, t, b, h, nd, lengths=lengths, n_gates=1)]
+    return xg.to(dtype), w_h.to(dtype), b_h, mask
+
+
+RNN_CASES = [pytest.param(*p.values, None, id=p.id) for p in CASES] + [
+    # (T, B, H, D, lengths): K6's plan at its edges and the cell's width
+    pytest.param(4, 32, 1280, 2, None, id="B32-H1280"),  # 160 slices, two a block
+    pytest.param(4, 32, 1280, 1, None, id="D1-H1280"),
+    pytest.param(3, 32, 1760, 2, None, id="H1760"),
+    pytest.param(5, 96, 100, 2, None, id="B96"),  # three row tiles
+    pytest.param(6, 1, 100, 2, [6], id="B1"),
+    pytest.param(6, 9, 100, 2, [0] * 9, id="all-len0"),  # every frame masked
+    pytest.param(5, 7, 20, 2, None, id="H20"),  # H % 8 != 0: element loads of h
+    pytest.param(3, 448, 800, 2, None, id="B448"),  # 14 row tiles a step
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,h,nd,lengths", RNN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rnn_kernels_match_reference(t, b, h, nd, lengths, dtype, cuda):  # noqa: F811
+    """K6f and K6b against their plain versions, one launch each a call,
+    each bit-identical over two calls (a race at the grid barrier would
+    show here)."""
+    args = _rnn_args(cuda, t, b, h, nd, dtype, seed=t * 1000 + b + h, lengths=lengths)
+    before = (birnn_forward.launches, birnn_backward.launches)
+    ys = birnn_forward(*args)
+    torch.cuda.synchronize()
+    assert ys.shape == (t, nd, b, h) and ys.dtype == dtype
+    ys_r = birnn_reference(*args)
+    _assert_close(ys, ys_r, dtype)
+    assert torch.equal(ys, birnn_forward(*args))
+    dy = torch.from_numpy(np.random.RandomState(t).randn(t, nd, b, h).astype(np.float32))
+    bwd = (args[1], args[3], ys_r, dy.to(cuda, dtype))
+    dpre = birnn_backward(*bwd)
+    torch.cuda.synchronize()
+    assert dpre.shape == (t, nd, b, h) and dpre.dtype == dtype
+    want = birnn_backward_reference(*bwd)
+    _assert_close(dpre, want, dtype, max(want.float().abs().max().item(), 1e-30))
+    assert torch.equal(dpre, birnn_backward(*bwd))
+    assert (birnn_forward.launches, birnn_backward.launches) == (
+        before[0] + 2, before[1] + 2 * birnn_mod.BWD_LAUNCHES)
+    if lengths is not None and not any(lengths):
+        assert not ys.any() and not dpre.any()
+
+
+@pytest.mark.cuda
+def test_rnn_function_gradients_match_plain_autograd(cuda):  # noqa: F811
+    """BiRNNFunction (K6f, K6b, the dw/db einsums) against autograd
+    through the plain forward, f32."""
+    xg, w_h, b_h, mask = _rnn_args(cuda, 9, 5, 32, 2, torch.float32)
+    dy = torch.from_numpy(np.random.RandomState(4).randn(9, 2, 5, 32).astype(np.float32))
+    grads = []
+    for f in (BiRNNFunction.apply, birnn_reference):
+        leaves = [a.clone().requires_grad_() for a in (xg, w_h, b_h)]
+        (f(*leaves, mask) * dy.to(cuda)).sum().backward()
+        grads.append([a.grad for a in leaves])
+    for g_k, g_r in zip(*grads):
+        assert (g_k - g_r).abs().max().item() <= 3e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rnn_kernels_past_one_plan_run_in_row_groups(dtype, cuda, monkeypatch):  # noqa: F811
+    """With both plans' row limits set to 7, K6f and K6b run B=20 in 3
+    row groups, one launch each; the results are the single launches'
+    bit for bit."""
+    import tpuasr_torch.ops.gru as gru_mod
+
+    args = _rnn_args(cuda, 5, 20, 100, 2, dtype, seed=21)
+    ys = birnn_forward(*args)
+    dy = torch.randn(ys.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda).to(dtype)
+    dpre = birnn_backward(args[1], args[3], ys, dy)
+    monkeypatch.setattr(gru_mod, "max_fwd_rows", lambda *a: 7)
+    monkeypatch.setattr(gru_mod, "max_bwd_rows", lambda *a: 7)
+    before = (birnn_forward.launches, birnn_backward.launches)
+    ys_g = birnn_forward(*args)
+    dpre_g = birnn_backward(args[1], args[3], ys, dy)
+    torch.cuda.synchronize()
+    assert (birnn_forward.launches - before[0], birnn_backward.launches - before[1]) == (3, 3)
+    assert torch.equal(ys_g, ys) and torch.equal(dpre_g, dpre)
+
+
+@pytest.mark.cuda
+def test_rnn_kernels_reject_what_they_do_not_take(cuda):  # noqa: F811
+    xg, w_h, b_h, mask = _rnn_args(cuda, 5, 3, 8, 2, torch.bfloat16)
+    with pytest.raises(TypeError):
+        birnn_forward(xg, w_h.float(), b_h, mask)
+    with pytest.raises(ValueError):
+        birnn_forward(torch.cat([xg, xg], -1).contiguous(), w_h, b_h, mask)  # 2H columns
+    ys = birnn_forward(xg, w_h, b_h, mask)
+    with pytest.raises(TypeError):
+        birnn_backward(w_h, mask, ys, ys.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        birnn_backward(w_h, mask, ys, ys.transpose(0, 1).contiguous().transpose(0, 1))
 
 
 def _ctc_case(device, t, b, s, seed=7, holes=False):

@@ -28,13 +28,14 @@ def _regions(plan):
         (plan.off_carry, state),
         (plan.off_carry_c, state if plan.n_gates == 4 else 0),
         (plan.off_direct, state),
-        (plan.off_hg, 2 * plan.slices_per_block * plan.B * plan.n_gates * UNITS * 4),
+        (plan.off_hg, 2 * plan.slices_per_block * plan.B * plan.n_gates * UNITS * 4
+         if plan.n_gates > 1 else 0),  # the vanilla RNN's K6b reads ys, not hg
         (plan.off_red, rnn_plan.NWARPS * UNITS * rnn_plan.ROW_TILE * 4),
         (plan.off_w, plan.pinned_rows * plan.w_stride * plan.itemsize),
     ]
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
+@pytest.mark.parametrize("n_gates", [1, 3, 4], ids=["rnn", "gru", "lstm"])
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
 def test_plan_owns_every_unit_once_and_fits_the_card(n_gates, itemsize):
     for nd in (1, 2):
@@ -65,14 +66,19 @@ def test_plan_owns_every_unit_once_and_fits_the_card(n_gates, itemsize):
                 assert plan.HP % UNITS == 0 and plan.GP % 16 == 0
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
-def test_flagship_pins_every_weight_row(n_gates):
-    """D=2, B=32, H=800, bf16: 100 blocks, each with its 16 rows of w_h
-    in shared memory (76.8 KB for the GRU, 102.4 KB for the LSTM)."""
-    plan = rnn_bwd_plan(2, 32, 800, n_gates, 2, N_SMS, SMEM)
-    assert plan.n_blocks == 100 and plan.slices_per_block == 1
-    assert plan.pinned_rows == UNITS
-    assert UNITS * n_gates * 800 * 2 <= plan.pinned_rows * plan.w_stride * 2
+@pytest.mark.parametrize("n_gates,h,blocks,spb", [(3, 800, 100, 1), (4, 800, 100, 1),
+                                                  (1, 1280, 80, 2)], ids=["gru", "lstm", "rnn"])
+def test_flagship_pins_every_weight_row(n_gates, h, blocks, spb):
+    """D=2, B=32, bf16. H=800: 100 blocks, each with its 16 rows of w_h
+    in shared memory (76.8 KB for the GRU, 102.4 KB for the LSTM). The
+    vanilla RNN at H=1280: 160 slices, two a block, 80 blocks, each with
+    its 32 rows of w_h (82 KB) and no hg buffers."""
+    plan = rnn_bwd_plan(2, 32, h, n_gates, 2, N_SMS, SMEM)
+    assert plan.n_slices == 2 * h // UNITS
+    assert plan.n_blocks == blocks and plan.slices_per_block == spb
+    assert plan.pinned_rows == spb * UNITS
+    assert spb * UNITS * n_gates * h * 2 <= plan.pinned_rows * plan.w_stride * 2
+    assert (plan.off_red == plan.off_hg) == (n_gates == 1)
 
 
 @pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
@@ -94,8 +100,9 @@ def test_plan_sizes_the_grid_to_the_card():
 def test_plan_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError, match="do not fit"):
         rnn_bwd_plan(2, 4096, 800, 4, 2, N_SMS, SMEM)
-    with pytest.raises(ValueError):
-        rnn_bwd_plan(2, 32, 800, 5, 2, N_SMS, SMEM)
+    for n_gates in (2, 5):
+        with pytest.raises(ValueError):
+            rnn_bwd_plan(2, 32, 800, n_gates, 2, N_SMS, SMEM)
     with pytest.raises(ValueError):
         rnn_bwd_plan(2, 32, 800, 3, 2, 0, SMEM)
 

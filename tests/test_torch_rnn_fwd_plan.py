@@ -42,7 +42,7 @@ def _regions(plan):
     ]
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
+@pytest.mark.parametrize("n_gates", [1, 3, 4], ids=["rnn", "gru", "lstm"])
 @pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
 def test_plan_owns_every_unit_once_and_fits_the_card(n_gates, itemsize):
     for nd in (1, 2):
@@ -75,7 +75,7 @@ def test_plan_owns_every_unit_once_and_fits_the_card(n_gates, itemsize):
                 assert plan.HP % UNITS == 0
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
+@pytest.mark.parametrize("n_gates", [1, 3, 4], ids=["rnn", "gru", "lstm"])
 def test_weight_rows_avoid_bank_conflicts(n_gates):
     """bf16: two rows of a quarter warp's 16-byte loads 64 bytes apart mod
     128; f32: the 16 units' rows at one column on distinct banks."""
@@ -86,15 +86,22 @@ def test_weight_rows_avoid_bank_conflicts(n_gates):
         assert len({u * f32.w_stride % 32 for u in range(UNITS)}) == UNITS
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
-def test_flagship_pins_every_weight_row(n_gates):
-    """D=2, B=32, H=800, bf16: 100 blocks, each with its n_gates x 16
-    columns of w_h in shared memory (76.8 KB for the GRU, 102.4 KB for
-    the LSTM)."""
-    plan = rnn_fwd_plan(2, 32, 800, n_gates, 2, N_SMS, SMEM)
-    assert plan.n_blocks == 100 and plan.slices_per_block == 1
-    assert plan.pinned_rows == n_gates * UNITS
-    assert plan.pinned_rows * plan.w_stride * 2 == n_gates * UNITS * 800 * 2
+@pytest.mark.parametrize("n_gates,h,blocks,spb,ws", [(3, 800, 100, 1, 800),
+                                                     (4, 800, 100, 1, 800),
+                                                     (1, 1280, 80, 2, 1312)],
+                         ids=["gru", "lstm", "rnn"])
+def test_flagship_pins_every_weight_row(n_gates, h, blocks, spb, ws):
+    """D=2, B=32, bf16. H=800: 100 blocks, each with its n_gates x 16
+    columns of w_h in shared memory, rows unpadded (76.8 KB for the GRU,
+    102.4 KB for the LSTM). The vanilla RNN at H=1280: 160 slices, two a
+    block, 80 blocks, each with its 2 x 16 columns in rows padded to 1312
+    (84 KB)."""
+    plan = rnn_fwd_plan(2, 32, h, n_gates, 2, N_SMS, SMEM)
+    assert plan.n_slices == 2 * h // UNITS
+    assert plan.n_blocks == blocks and plan.slices_per_block == spb
+    assert plan.pinned_rows == spb * n_gates * UNITS
+    assert plan.w_stride == ws
+    assert plan.pinned_rows * plan.w_stride * 2 == spb * n_gates * UNITS * ws * 2 <= SMEM
 
 
 @pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
@@ -121,8 +128,9 @@ def test_plan_sizes_the_grid_to_the_card():
 def test_plan_refuses_what_it_cannot_hold():
     with pytest.raises(ValueError, match="do not fit|does not fit"):
         rnn_fwd_plan(2, 8192, 800, 4, 2, N_SMS, SMEM)
-    with pytest.raises(ValueError):
-        rnn_fwd_plan(2, 32, 800, 5, 2, N_SMS, SMEM)
+    for n_gates in (2, 5):
+        with pytest.raises(ValueError):
+            rnn_fwd_plan(2, 32, 800, n_gates, 2, N_SMS, SMEM)
     with pytest.raises(ValueError):
         rnn_fwd_plan(2, 32, 800, 3, 2, 0, SMEM)
 
@@ -144,6 +152,7 @@ def test_plan_fields_match_the_c_layout():
 
 @pytest.mark.parametrize("case", [
     ("gru", 800, 3, 422), ("lstm", 800, 4, 306), ("gru", 1760, 3, 211), ("lstm", 1760, 4, 153),
+    ("rnn", 1280, 1, 844),
 ], ids=lambda c: f"{c[0]}-{c[1]}" if isinstance(c, tuple) else None)
 def test_max_bwd_rows_is_the_bound_the_plan_raises_at(case):
     """The backward's largest batch on an H100, bf16: one more row and a
@@ -156,9 +165,9 @@ def test_max_bwd_rows_is_the_bound_the_plan_raises_at(case):
         rnn_bwd_plan(2, got + 1, h, n_gates, 2, N_SMS, SMEM)
 
 
-@pytest.mark.parametrize("n_gates", [3, 4], ids=["gru", "lstm"])
+@pytest.mark.parametrize("n_gates", [1, 3, 4], ids=["rnn", "gru", "lstm"])
 def test_max_fwd_rows_is_the_bound_the_plan_raises_at(n_gates):
-    for h in (800, 1760):
+    for h in (800, 1280, 1760):
         got = max_fwd_rows(2, h, n_gates, 2, N_SMS, SMEM)
         assert got >= 512  # far past any serving or training batch
         rnn_fwd_plan(2, got, h, n_gates, 2, N_SMS, SMEM)

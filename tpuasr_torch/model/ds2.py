@@ -23,16 +23,19 @@ Which kernel runs the time loop:
   lstm + any impl        K4, ``lstm.bilstm_forward`` / ``BiLSTMFunction``
   gru, unidirectional    K1 with one direction (D=1), any impl
   lstm, unidirectional   K4 with one direction (D=1)
-  rnn (vanilla)          no kernel: a plain time loop in the compute
-                         dtype (the JAX package runs ``lax.scan``
-                         under every impl; no Pallas kernel exists)
+  rnn (vanilla tanh)     K6, ``birnn.birnn_forward`` / ``BiRNNFunction``
+                         (D=2, or D=1 unidirectional), any impl; the
+                         port's own kernel: the JAX package runs
+                         ``lax.scan`` under every impl (no Pallas kernel)
   =====================  ==========================================
 
-``lstm`` runs K4 under every impl and ``gru`` + ``scan`` runs K1: the
-port follows the ``pallas`` numerics for every impl (the JAX package
-runs ``scan``, and ``lstm`` + ``pallas2``, through ``lax.scan``). A
-unidirectional GRU runs K1 at D=1 under ``pallas2`` too: JAX's
-``RecurrentCore`` knows only ``pallas``, and K5 is bidirectional only.
+On the CPU each wrapper runs its kernel's plain PyTorch version, with
+the kernel's numerics. ``lstm`` runs K4 under every impl and ``gru`` +
+``scan`` runs K1: the port follows the ``pallas`` numerics for every
+impl (the JAX package runs ``scan``, and ``lstm`` + ``pallas2``, through
+``lax.scan``). A unidirectional GRU runs K1 at D=1 under ``pallas2``
+too: JAX's ``RecurrentCore`` knows only ``pallas``, and K5 is
+bidirectional only.
 
 Distributed training (``parallel.py``, ``train/mesh.py``, ``set_parallel``):
 with a data group every train-mode BatchNorm takes its statistics over
@@ -62,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuasr_torch.ops.birnn import BiRNNFunction, birnn_forward
 from tpuasr_torch.ops.gru import BiGRUFunction, bigru_forward
 from tpuasr_torch.ops.gru2 import BiGRU2Function, bigru2_forward
 from tpuasr_torch.ops.lstm import BiLSTMFunction, bilstm_forward
@@ -241,36 +245,17 @@ class MaskedConvBlock(nn.Module):
         return x * mask[:, :, None, None].to(x.dtype), out_lengths
 
 
-def tanh_rnn(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
-    """The vanilla RNN's time loop, ``h = m * tanh(xg + h @ w_h + b_h) +
-    (1 - m) * h`` (``tpuasr/model/ds2.py:318-330, 523``), in xg's dtype
-    with plain ops, so autograd runs through it. xg (T, D, B, H), w_h
-    (D, H, H) and b_h (D, H) in the compute dtype, mask (T, D, B) ->
-    ys (T, D, B, H). No Pallas kernel exists for it in the JAX package
-    (``lax.scan`` under every impl), so the port has none either."""
-    dt = xg.dtype
-    h = xg.new_zeros(xg.shape[1:3] + (w_h.shape[1],))
-    ys = []
-    for t in range(xg.shape[0]):
-        h_new = torch.tanh(xg[t] + torch.bmm(h, w_h) + b_h[:, None, :])
-        m = mask[t].to(dt)[:, :, None]
-        h = m * h_new + (1 - m) * h
-        ys.append(h)
-    return torch.stack(ys)
-
-
 def _loop(rnn_type: str, xg, w_h, b_h, mask):
-    """One fused time loop over D directions: K1 (GRU) or K4 (LSTM)
-    through their autograd functions when grad is enabled, else the
-    forward wrappers; the vanilla RNN's plain loop. xg (T, D, B, G*H)
-    and w_h (D, H, G*H) in the compute dtype, b_h (D, G*H) (used in f32
-    by the kernels, in the compute dtype by the vanilla loop), mask
-    (T, D, B) f32 -> ys (T, D, B, H)."""
+    """One fused time loop over D directions: K1 (GRU), K4 (LSTM) or K6
+    (the vanilla tanh RNN, ``h = m * tanh(xg + h @ w_h + b_h) + (1 - m)
+    * h``, ``tpuasr/model/ds2.py:318-330, 523``) through their autograd
+    functions when grad is enabled, else the forward wrappers. xg (T, D,
+    B, G*H) and w_h (D, H, G*H) in the compute dtype, b_h (D, G*H) (used
+    in f32), mask (T, D, B) f32 -> ys (T, D, B, H)."""
     grad = torch.is_grad_enabled()
-    if rnn_type == "rnn":
-        return tanh_rnn(xg, w_h, b_h.to(xg.dtype), mask)
     b_h = b_h.to(torch.float32).contiguous()
+    if rnn_type == "rnn":  # K6
+        return (BiRNNFunction.apply if grad else birnn_forward)(xg, w_h, b_h, mask)
     if rnn_type == "lstm":  # K4
         return BiLSTMFunction.apply(xg, w_h, b_h, mask) if grad else \
             bilstm_forward(xg, w_h, b_h, mask)[0]
@@ -370,7 +355,7 @@ class RecurrentCore(_Sharded, nn.Module):
     input projection as one matmul, then the time loop with a singleton
     direction axis (xg (T, 1, B, G*H), w_h (1, H, G*H), mask (T, 1, B)),
     as the JAX package calls its fused kernels (``:281-295``): K1 for a
-    GRU, K4 for an LSTM, the plain loop for the vanilla RNN. Under
+    GRU, K4 for an LSTM, K6 for the vanilla RNN. Under
     gate-axis TP the recurrent kernel and bias are gathered whole first
     (the input projection is replicated)."""
 

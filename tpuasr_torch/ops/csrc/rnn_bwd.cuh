@@ -1,6 +1,7 @@
 // The fused bidirectional RNN backward for NVIDIA Hopper (sm_90a), shared
-// by the BiGRU (K1b in the [k, g*H + j] layout, K5b gate-major) and the
-// BiLSTM (K4b). Two launches a call, whatever T:
+// by the BiGRU (K1b in the [k, g*H + j] layout, K5b gate-major), the
+// BiLSTM (K4b) and the vanilla tanh RNN (K6b, one gate). Two launches a
+// call, whatever T (K6b: the loop alone, see below):
 //
 // 1. hg_gemm: hg for every step at once, HG[t, d] = h_{t-1}[t, d] @ w_h[d]
 //    + b_h[d], one (T*B) x H x NG*H product per direction. hg depends on
@@ -39,6 +40,12 @@
 //    t - 1, which every block passes after its part (b) of step t.
 // No sum uses atomics; every reduction has a fixed order, so a call is
 // bit-identical to the next, and K5b to K1b on relaid-out inputs.
+//
+// K6b (NG = 1) needs no hg: the derivative of tanh is read from the
+// forward's output, d(pre)_t = (dy_t + carry) (1 - y_t^2) m_t with y_t =
+// ys[t] as the forward rounded it, so it skips the GEMM and runs the loop
+// alone, on ys in h_{t-1}'s place and without xg. A trace names it
+// rnn_bwd_loop<T, 1>.
 //
 // A per-part step timer (clock64 spans of thread 0, summed over steps:
 // the wait for HG[t], the gate math, the barrier wait, the wait for dhg's
@@ -85,11 +92,11 @@ struct BwdArgs {
   const T* w_h;
   WLayout wl;
   const float* mask;  // (T, D, B)
-  const T* hp;        // (T, D, B, H): h_{t-1}
+  const T* hp;        // (T, D, B, H): h_{t-1}; the vanilla RNN's ys (h_t)
   const T* cp;        // (T, D, B, H): c_{t-1} (LSTM)
   const T* cs;        // (T, D, B, H): c_t (LSTM)
   const T* dy;        // (T, D, B, H)
-  const float* hg;    // (T, D, B, NG, HP)
+  const float* hg;    // (T, D, B, NG, HP); null for the vanilla RNN
   T* out;
   GateStrides ps;
   float* dhg;         // (2, D, B, GP) 4-byte words (put_dhg), zero past NG*H
@@ -482,8 +489,9 @@ __device__ __forceinline__ void carry_fma(const T* w_s, const BwdLayout& L, int 
 }
 
 // The inputs of one (step, row, unit) of the gate math, read ahead of
-// their use (they do not depend on the carry): xg's NG gates, the GRU's
-// h_{t-1} or the LSTM's c_t (h), the LSTM's c_{t-1} (c), dy and m.
+// their use (they do not depend on the carry): xg's NG gates (not the
+// vanilla RNN's), the GRU's h_{t-1}, the LSTM's c_t or the vanilla RNN's
+// y_t (h), the LSTM's c_{t-1} (c), dy and m.
 template <typename T, int NG>
 struct GateIn {
   T x[NG];
@@ -493,8 +501,8 @@ struct GateIn {
 
 // The reverse time loop (header comment). NG = 3: GRU, the emitted
 // gradient has gates [dr_pre, dz_pre, dn_pre, dhn]; NG = 4: LSTM, [di,
-// df, dg, do]. grid = L.n_blocks (cooperative), block = BW_THREADS,
-// dynamic shared memory L.smem.
+// df, dg, do]; NG = 1: vanilla RNN, d(pre). grid = L.n_blocks
+// (cooperative), block = BW_THREADS, dynamic shared memory L.smem.
 template <typename T, int NG>
 __global__ void __launch_bounds__(BW_THREADS, 1)
 rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
@@ -566,10 +574,13 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
     where(p, sl, d, b, j);
     if (j >= H) return;
     const size_t r = (static_cast<size_t>(t) * D + d) * B + b;  // (t, d, b)
-    const T* x = a.xg + static_cast<size_t>(t) * D * a.xs.sd + d * a.xs.sd + b * a.xs.sb + j;
+    if constexpr (NG > 1) {
+      const T* x =
+          a.xg + static_cast<size_t>(t) * D * a.xs.sd + d * a.xs.sd + b * a.xs.sb + j;
 #pragma unroll
-    for (int g = 0; g < NG; ++g) in.x[g] = x[g * a.xs.sg];
-    in.h = NG == 3 ? a.hp[r * H + j] : a.cs[r * H + j];
+      for (int g = 0; g < NG; ++g) in.x[g] = x[g * a.xs.sg];
+    }
+    in.h = NG == 4 ? a.cs[r * H + j] : a.hp[r * H + j];
     if (NG == 4) in.c = a.cp[r * H + j];
     in.dy = a.dy[r * H + j];
     in.m = a.mask[r];
@@ -586,7 +597,13 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
     const float dh = carry[p] + to_f32(in.dy);
     float* dg = dhg_t + (static_cast<size_t>(d) * B + b) * GP;  // the row
     T* o = a.out + static_cast<size_t>(t) * D * a.ps.sd + d * a.ps.sd + b * a.ps.sb + j;
-    if constexpr (NG == 3) {
+    if constexpr (NG == 1) {
+      const float y = to_f32(in.h);
+      const float dpre = dh * (1.0f - y * y) * m;
+      put_dhg<T>(dg, j, dpre);
+      o[0] = from_f32<T>(dpre);
+      direct[p] = (1.0f - m) * dh;
+    } else if constexpr (NG == 3) {
       const float h = to_f32(in.h);
       const float rg = sigmoid_f32(to_f32(in.x[0]) + hgv[0]);
       const float zg = sigmoid_f32(to_f32(in.x[1]) + hgv[BW_UNITS]);
@@ -644,14 +661,15 @@ rnn_bwd_loop(const BwdArgs<T> a, const BwdLayout L) {
   GateIn<T, NG> in0, in1;  // the first two items of this thread, a step ahead
   if (tid < state) load_in(a.T_len - 1, tid, in0);
   if (tid + BW_THREADS < state) load_in(a.T_len - 1, tid + BW_THREADS, in1);
-  prefetch_hg(a.T_len - 1, (a.T_len - 1) & 1);
+  if constexpr (NG > 1) prefetch_hg(a.T_len - 1, (a.T_len - 1) & 1);
   for (int i = 0; i < a.T_len; ++i) {
     const int t = a.T_len - 1 - i;
     long long c0 = timed ? clock64() : 0;
     cp_async_wait<0>();  // HG[t] has landed
     __syncthreads();
     lap(c0, 0);
-    if (t > 0) prefetch_hg(t - 1, (t - 1) & 1);
+    if constexpr (NG > 1)
+      if (t > 0) prefetch_hg(t - 1, (t - 1) & 1);
     const float* hgt = hg_s + (t & 1) * hg_buf;
     float* dhg_t = a.dhg + (t & 1) * dhg_buf;
 

@@ -1,7 +1,9 @@
 // The fused bidirectional RNN forward for NVIDIA Hopper (sm_90a), shared by
-// the BiGRU (K1f in the [k, g*H + j] layout, K5f gate-major) and the BiLSTM
-// (K4f): the whole time loop in ONE persistent, cooperative launch per call
-// (rnn_plan.py decides its tiling and hands it over as a FwdLayout).
+// the BiGRU (K1f in the [k, g*H + j] layout, K5f gate-major), the BiLSTM
+// (K4f) and the vanilla tanh RNN (K6f, one gate): the whole time loop in ONE
+// persistent, cooperative launch per call (rnn_plan.py decides its tiling
+// and hands it over as a FwdLayout). K6f is the instance NG = 1, so a
+// trace names it rnn_fwd_loop<T, 1, VEC>.
 //
 // A block owns slices of 16 hidden units of one direction (slice s is
 // direction s / (HP / 16), units 16 * (s % (HP / 16)) on), for every batch
@@ -213,9 +215,9 @@ __device__ __forceinline__ void fwd_fma(float (&hg)[NG], const float* w_s, const
 }
 
 // The forward time loop (header comment). NG = 3: GRU, gates [r, z, n];
-// NG = 4: LSTM, gates [i, f, g, o]. VEC: bf16 with H % 8 == 0. grid =
-// L.n_blocks (cooperative), block = FW_THREADS, dynamic shared memory
-// L.smem.
+// NG = 4: LSTM, gates [i, f, g, o]; NG = 1: vanilla tanh RNN. VEC: bf16
+// with H % 8 == 0. grid = L.n_blocks (cooperative), block = FW_THREADS,
+// dynamic shared memory L.smem.
 template <typename T, int NG, bool VEC>
 __global__ void __launch_bounds__(FW_THREADS, 1)
 rnn_fwd_loop(const FwdArgs<T> a, const FwdLayout L) {
@@ -288,7 +290,10 @@ rnn_fwd_loop(const FwdArgs<T> a, const FwdLayout L) {
     const float h = h_s[q], m = in.m;
     const size_t o = ((static_cast<size_t>(t) * D + d) * B + b) * H + j;
     float h_t;
-    if constexpr (NG == 3) {
+    if constexpr (NG == 1) {
+      const float h_new = tanhf(to_f32(in.x[0]) + (hg[0] + bh[j]));
+      h_t = m * h_new + (1.0f - m) * h;
+    } else if constexpr (NG == 3) {
       const float rg = sigmoid_f32(to_f32(in.x[0]) + (hg[0] + bh[j]));
       const float zg = sigmoid_f32(to_f32(in.x[1]) + (hg[1] + bh[H + j]));
       const float ng = tanhf(to_f32(in.x[2]) + rg * (hg[2] + bh[2 * H + j]));
@@ -442,7 +447,7 @@ inline FwdLayout read_fwd_layout(const int* v) {
 
 // One call's forward for T = float (dtype 0) or __nv_bfloat16 (1): the
 // arguments as the C entry points take them (layout: FwdPlan.as_ints()).
-// cs is null for the GRU.
+// cs is null for the GRU and the vanilla RNN.
 template <int NG>
 int fwd_loop(const void* xg, GateStrides xs, const void* w_h, WLayout wl, const float* b_h,
              const float* mask, void* ys, void* cs, unsigned int* bar, long long* timer,

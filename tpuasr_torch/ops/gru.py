@@ -128,7 +128,7 @@ def shift_time(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
 
 
-def check_inputs(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
+def check_inputs(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor | None,
                  mask: torch.Tensor, n_gates: int = 3,
                  gate_major: bool = False) -> int:
     """Raise unless the fused RNN kernels take these inputs; returns H.
@@ -136,7 +136,8 @@ def check_inputs(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
     (D, n_gates*H); gate-major xg (T, D, n_gates, B, H), w_h
     (D, n_gates, H, H), b_h (D, n_gates, H); mask (T, D, B); D in (1, 2);
     xg and w_h f32 or bf16 alike, b_h and mask f32, all contiguous on
-    xg's device."""
+    xg's device. b_h None: a kernel that takes none (the vanilla RNN's
+    backward)."""
     g = n_gates
     if xg.dim() != (5 if gate_major else 4):
         layout = f"(T, D, {g}, B, H)" if gate_major else f"(T, D, B, {g}H)"
@@ -153,15 +154,17 @@ def check_inputs(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
         raise ValueError(f"xg {tuple(xg.shape)} does not match w_h "
                          f"{tuple(w_h.shape)}: need D in (1, 2) and {g} gates of H")
     want["mask"] = (t_len, nd, b)
-    for name, t in (("w_h", w_h), ("b_h", b_h), ("mask", mask)):
+    named = [(n, t) for n, t in (("xg", xg), ("w_h", w_h), ("b_h", b_h), ("mask", mask))
+             if t is not None]
+    for name, t in named[1:]:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
     if xg.dtype not in DTYPE_CODE or w_h.dtype != xg.dtype:
         raise TypeError(f"xg and w_h must share float32 or bfloat16, got "
                         f"{xg.dtype} and {w_h.dtype}")
-    if b_h.dtype != torch.float32 or mask.dtype != torch.float32:
+    if any(t.dtype != torch.float32 for n, t in named if n in ("b_h", "mask")):
         raise TypeError("b_h and mask must be float32")
-    for name, t in (("xg", xg), ("w_h", w_h), ("b_h", b_h), ("mask", mask)):
+    for name, t in named:
         if t.device != xg.device:
             raise ValueError(f"{name} is on {t.device}, xg on {xg.device}")
         if not t.is_contiguous():
@@ -187,17 +190,19 @@ def check_states(xg: torch.Tensor, shape: tuple, **states: torch.Tensor) -> None
 @functools.cache
 def kernel_library(name: str) -> ctypes.CDLL:
     """The library of an RNN kernel (built on first use), ``bigru[2]_fwd``,
-    ``bilstm_fwd``, ``bigru[2]_bwd`` or ``bilstm_bwd``, with its C
-    signatures; the forward libraries share theirs (the LSTM's adds cs),
-    and so do the backward ones."""
+    ``bilstm_fwd``, ``birnn_fwd``, ``bigru[2]_bwd``, ``bilstm_bwd`` or
+    ``birnn_bwd``, with its C signatures; the forward libraries share
+    theirs (the LSTM's adds cs), and so do the backward ones (the vanilla
+    RNN's has no hg GEMM)."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     if name.endswith("fwd"):
         n_out = 2 if name == "bilstm_fwd" else 1  # ys (and cs)
         fns = {f"tpuasr_{name}": [p] * (4 + n_out) + [p] * 3 + [i] * 5 + [p]}
     else:
-        fns = {f"tpuasr_{name}_hg": [p] * 4 + [i] * 6 + [p],
-               f"tpuasr_{name}_loop": [p] * 13 + [i] * 5 + [p]}
+        fns = {f"tpuasr_{name}_loop": [p] * 13 + [i] * 5 + [p]}
+        if name != "birnn_bwd":
+            fns[f"tpuasr_{name}_hg"] = [p] * 4 + [i] * 6 + [p]
     fns["tpuasr_rnn_device_limits"] = [ctypes.POINTER(i)] * 2
     for fn_name, argtypes in fns.items():
         fn = getattr(lib, fn_name)
@@ -240,6 +245,7 @@ def _rows(x: torch.Tensor, axis: int, b0: int, b1: int) -> torch.Tensor:
 
 
 BWD_LAUNCHES = 2  # per backward call and row group: the hg GEMM and the persistent loop
+# (the vanilla RNN's K6b: the loop alone, ops.birnn.BWD_LAUNCHES)
 # A list to time the backward's two launches: each call appends CUDA
 # events {"hg": (start, end), "loop": (start, end)} per row group; None:
 # no events.
@@ -253,14 +259,16 @@ bwd_parts: list | None = None
 
 
 def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
-                 b_h: torch.Tensor, mask: torch.Tensor, h_prev: torch.Tensor,
+                 b_h: torch.Tensor | None, mask: torch.Tensor, h_prev: torch.Tensor,
                  dy: torch.Tensor, out: torch.Tensor, c_prev: torch.Tensor | None = None,
                  cs: torch.Tensor | None = None, batch_axis: int = 2) -> int:
     """Launch a fused RNN backward (``csrc/rnn_bwd.cuh``) into ``out``:
     the hg GEMM over every step, then the persistent reverse loop, tiled
     by ``rnn_bwd_plan`` for this card. ``name`` is the library
-    (``bigru_bwd``, ``bigru2_bwd``, ``bilstm_bwd``); inputs are checked by
-    the caller; ``batch_axis`` is the batch axis of xg and out (3 in the
+    (``bigru_bwd``, ``bigru2_bwd``, ``bilstm_bwd``; ``birnn_bwd``, one
+    gate, runs the loop alone, on ys in xg's and h_prev's places and with
+    no b_h); inputs are checked by the caller; ``batch_axis`` is the
+    batch axis of xg and out (3 in the
     gate-major layout; 2 in every other tensor). A batch larger than one
     plan holds (``max_bwd_rows``) runs in row groups, each its own GEMM
     and loop: every row's recursion is independent, so the result is
@@ -285,7 +293,8 @@ def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
         xg_g, out_g = _rows(xg, batch_axis, b0, b1), _rows(out, batch_axis, b0, b1)
         mask_g, hp_g, dy_g = (_rows(x, 2, b0, b1) for x in (mask, h_prev, dy))
         cp_g, cs_g = (None if x is None else _rows(x, 2, b0, b1) for x in (c_prev, cs))
-        hg = torch.empty((t_len, nd, bg, n_gates, plan.HP), **f32)  # hg of every step
+        hg = (torch.empty((t_len, nd, bg, n_gates, plan.HP), **f32)  # hg of every step
+              if n_gates > 1 else None)
         dhg = torch.zeros((2, nd, bg, plan.GP), **f32)  # dhg of steps t % 2 (put_dhg); pad stays 0
         bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier counter
         timer = (None if bwd_parts is None else
@@ -298,15 +307,16 @@ def run_backward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
                 torch.cuda.Event(enable_timing=True) for _ in range(3)]
             if ev:
                 ev[0].record()
-            err = getattr(lib, f"tpuasr_{name}_hg")(
-                hp_g.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), hg.data_ptr(),
-                t_len, nd, bg, h, plan.HP, code, stream)
-            raise_on(lib, err, f"{name} hg")
+            if hg is not None:
+                err = getattr(lib, f"tpuasr_{name}_hg")(
+                    hp_g.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), hg.data_ptr(),
+                    t_len, nd, bg, h, plan.HP, code, stream)
+                raise_on(lib, err, f"{name} hg")
             if ev:
                 ev[1].record()
             err = getattr(lib, f"tpuasr_{name}_loop")(
                 xg_g.data_ptr(), w_h.data_ptr(), mask_g.data_ptr(), hp_g.data_ptr(),
-                ptr(cp_g), ptr(cs_g), dy_g.data_ptr(), hg.data_ptr(), out_g.data_ptr(),
+                ptr(cp_g), ptr(cs_g), dy_g.data_ptr(), ptr(hg), out_g.data_ptr(),
                 dhg.data_ptr(), bar.data_ptr(), ptr(timer), layout, t_len, nd, bg, h, code,
                 stream)
             raise_on(lib, err, f"{name} loop")

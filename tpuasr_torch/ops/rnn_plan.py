@@ -1,5 +1,5 @@
-"""Launch plans of the fused RNN kernels: the backward (K1b, K4b, K5b)
-and the forward (K1f, K4f, K5f).
+"""Launch plans of the fused RNN kernels: the backward (K1b, K4b, K5b,
+K6b) and the forward (K1f, K4f, K5f, K6f).
 
 Both run their time loop in one persistent, cooperative launch
 (``csrc/rnn_bwd.cuh``, ``csrc/rnn_fwd.cuh``). This module decides the
@@ -13,14 +13,17 @@ is direction ``s // (HP / UNITS)``, units ``UNITS * (s % (HP / UNITS))``
 on), for every batch row, walking the rows in tiles of ``ROW_TILE``.
 
 The backward (two launches: a tensor-core GEMM that computes hg = h_{t-1}
-@ w_h + b_h for every step at once, then the reverse loop): a block does
+@ w_h + b_h for every step at once, then the reverse loop; the vanilla
+RNN's K6b, one gate, reads the forward's ys instead of hg and runs the
+loop alone): a block does
 the gate math of its units and, after the step's grid barrier, the carry
 product for the same units. In the carry product each of the 8 warps
 streams ``warp_ksteps`` k-steps (16 columns each) of the step's dhg from
 L2 into registers; dhg is not staged in shared memory. The block's shared
 memory holds, in order: the carries it owns (dh, and dc for the LSTM) and
 the step's direct term, all f32 (slices x B x UNITS); hg of the step and
-of the next one (two buffers of slices x B x n_gates x UNITS f32); the 8
+of the next one (two buffers of slices x B x n_gates x UNITS f32, none
+at one gate); the 8
 warps' partial sums (8 x UNITS x ROW_TILE f32); and, with what is left,
 the block's rows of w_h (one row per unit, n_gates*H values at the
 weights' itemsize, padded to ``w_stride``).
@@ -117,8 +120,9 @@ def _slicing(D: int, H: int, n_sms: int) -> tuple[int, int, int, int]:
 def _bwd_state(spb: int, B: int, n_gates: int) -> dict[str, int]:
     """Bytes of the backward's shared regions before w_h, in their order."""
     state = spb * B * UNITS * 4
+    hg = 2 * spb * B * n_gates * UNITS * 4 if n_gates > 1 else 0  # K6b reads ys, not hg
     return {"carry": state, "carry_c": state if n_gates == 4 else 0, "direct": state,
-            "hg": 2 * spb * B * n_gates * UNITS * 4, "red": NWARPS * UNITS * ROW_TILE * 4}
+            "hg": hg, "red": NWARPS * UNITS * ROW_TILE * 4}
 
 
 def _fwd_state(spb: int, B: int, n_gates: int) -> dict[str, int]:
@@ -137,7 +141,7 @@ def _max_rows(state, spb: int, n_gates: int, smem_per_block: int) -> int:
 
 
 def _check(kind: str, D: int, B: int, H: int, n_gates: int, itemsize: int, n_sms: int):
-    if D < 1 or B < 1 or H < 1 or n_gates not in (3, 4) or itemsize not in (2, 4):
+    if D < 1 or B < 1 or H < 1 or n_gates not in (1, 3, 4) or itemsize not in (2, 4):
         raise ValueError(f"no {kind} plan for D={D} B={B} H={H} "
                          f"n_gates={n_gates} itemsize={itemsize}")
     if n_sms < 1:
@@ -147,9 +151,9 @@ def _check(kind: str, D: int, B: int, H: int, n_gates: int, itemsize: int, n_sms
 def rnn_bwd_plan(D: int, B: int, H: int, n_gates: int, itemsize: int, n_sms: int,
                  smem_per_block: int) -> BwdPlan:
     """The plan for direction count D, batch B, hidden H, ``n_gates``
-    (3: GRU, 4: LSTM) and weights of ``itemsize`` bytes (2: bf16, 4:
-    f32) on a card of ``n_sms`` SMs with ``smem_per_block`` bytes of
-    opt-in shared memory a block. One block per SM at most, so the
+    (1: vanilla tanh RNN, 3: GRU, 4: LSTM) and weights of ``itemsize``
+    bytes (2: bf16, 4: f32) on a card of ``n_sms`` SMs with
+    ``smem_per_block`` bytes of opt-in shared memory a block. One block per SM at most, so the
     cooperative launch is co-resident. Raises ValueError when the
     carries do not fit (B past ``max_bwd_rows``)."""
     _check("backward", D, B, H, n_gates, itemsize, n_sms)
@@ -237,9 +241,9 @@ class FwdPlan:
 def rnn_fwd_plan(D: int, B: int, H: int, n_gates: int, itemsize: int, n_sms: int,
                  smem_per_block: int) -> FwdPlan:
     """The forward plan for direction count D, batch B, hidden H,
-    ``n_gates`` (3: GRU, 4: LSTM) and weights of ``itemsize`` bytes on a
-    card of ``n_sms`` SMs with ``smem_per_block`` bytes of opt-in shared
-    memory a block. One block per SM at most, so the cooperative launch
+    ``n_gates`` (1: vanilla tanh RNN, 3: GRU, 4: LSTM) and weights of
+    ``itemsize`` bytes on a card of ``n_sms`` SMs with ``smem_per_block``
+    bytes of opt-in shared memory a block. One block per SM at most, so the cooperative launch
     is co-resident. Raises ValueError when the state of B rows does not
     fit (``max_fwd_rows``)."""
     _check("forward", D, B, H, n_gates, itemsize, n_sms)
