@@ -15,7 +15,9 @@ device-beam path from a work directory a full run left: time_beam_path.
 their loop's step (bwd_times), with the tpuasr_torch of ROOT if given;
 ``--time-rnn LABEL [ROOT]`` times the forward kernels K1f, K4f and K6f
 (fwd_times) and then runs bwd_times, and prints the RNN libraries'
-registers and spills.
+registers and spills; ``--time-dw LABEL [ROOT]`` times the backward's
+weight gradients at the training cells' shapes (dw_times) and prints the
+same.
 ``python3 chip_smoke.py --stream-only`` runs phase 10 alone, on a corpus
 and word LM of its own, and prints no result line; ``--dist-only`` does
 the same for phase 13. ``--dist-worker SPEC --rank R --world-size N
@@ -72,7 +74,14 @@ non-zero without printing a result:
                timed and split beside cuDNN's nn.RNN (tanh). Then
                bwd_times: K1b, K4b and K5b per call at B=32, 128 and past
                one plan's rows, K1b at D=1, K6b at H=1280 (D=2 and 1),
-               each with its loop's step split.
+               each with its loop's step split. Then dw_times: the
+               weight gradients' kernel dw_gemm_bf16 at B=32, D=2, T'=251
+               and 826, GRU (G=2,400), LSTM (3,200) and vanilla (H=G=
+               1,280) widths, against the f64 sums of the same bf16
+               products (relative Frobenius gap <= 1e-4 for dw and db,
+               DW_REL_ERR_F64; the f32 einsum's own gap to them and the
+               gap between the two reported), timed beside that einsum
+               and the bound.
                With the forward plan's row limit set to 7, B=20 runs in 3
                row groups, one launch each, equal bit for bit to one
                launch.
@@ -82,7 +91,8 @@ non-zero without printing a result:
                (5 BiGRU-800 layers, 44 classes, bf16, batch 32, 2
                epochs, checkpoints). Every step's loss and grad_norm must
                be finite with 32 usable utterances, the launch counts of
-               all four kernels (zeroed just before) must have grown, and
+               all five kernels (the RNN's two, CTC's two and the weight
+               gradients'; zeroed just before) must have grown, and
                the written checkpoint must transcribe a WAV through the
                serving path. Then one train step through the kernels
                against the plain versions on the same weights and batch,
@@ -233,7 +243,7 @@ non-zero without printing a result:
                and cli.test --decoder greedy on rank 0's checkpoint. Step
                times of two ranks on one card are the shared card's, not
                a speed-up.
- 14. a {"kernels": [...]} line (all eleven kernels, launches by path and
+ 14. a {"kernels": [...]} line (all twelve kernels, launches by path and
      by rank on the distributed paths, the RNN kernels' D=1 times beside
      them), then the nvidia-smi line, then the last line {"ok": true,
      "device": {...}}.
@@ -295,6 +305,7 @@ version compares hashes: the two differ only on a 64-bit collision.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -724,6 +735,120 @@ def fwd_times(smi: str, label: str = "tree", cases=FWD_TIME_CASES,
     return rows
 
 
+# (kind, T') of the weight gradients' times, at B=32 and D=2: the training
+# cells' widths at both buckets
+DW_TIME_CASES = (("gru", 251), ("gru", 826), ("lstm", 251), ("lstm", 826),
+                 ("rnn", 251), ("rnn", 826))
+# dw_gemm_bf16's bound in dw_times: its dw and db against the f64 sums of
+# the same bf16 products, relative Frobenius gap. The f32 sums' rounding
+# grows with the rows summed: against the f32 einsum the gap reads 6.2e-6
+# at T'=251 and 2.1e-5 at 826 (GRU, B=32); a fault moves it by far more (a
+# k-step of 32 rows lost or counted twice among 8,032 or more, >= 6e-2; a
+# wrong gate or column, ~1)
+DW_REL_ERR_F64 = 1e-4
+# kind: (gates the backward emits, gates w_h reads, shift)
+DW_KINDS = {"gru": (4, (0, 1, 3), 0), "lstm": (4, (0, 1, 2, 3), 0), "rnn": (1, (0,), 1)}
+
+
+def dw_inline(kind, h, dhg, w_h, b_h):
+    """dw and db as the autograd functions formed them inline before
+    ``rnn_weight_grads`` (the K6 function's ys shifted for the einsum
+    alone; K1's three gates gathered by a ``cat``; f32 copies of both
+    operands)."""
+    import torch
+
+    from tpuasr_torch.ops.gru import shift_time
+
+    f32, hd = torch.float32, h.shape[-1]
+    if kind == "gru":
+        g = torch.cat([dhg[..., :2 * hd], dhg[..., 3 * hd:]], dim=-1).to(f32)
+    else:
+        g = dhg.to(f32)
+    hf = (shift_time(h) if kind == "rnn" else h).to(f32)
+    dw = torch.einsum("tdbh,tdbg->dhg", hf, g)
+    return dw.to(w_h.dtype), g.sum(dim=(0, 2)).to(b_h.dtype)
+
+
+def dw_times(smi: str, label: str = "tree", cases=DW_TIME_CASES, device: str = "cuda",
+             b: int = 32, nd: int = 2) -> list:
+    """The weight gradients of one backward call (dw and db) at the
+    training cells' shapes, bf16 operands and w_h as the model hands them
+    over: ``ms``, what the tpuasr_torch imported (the first on sys.path,
+    as in ``bwd_times``) forms them with, ``rnn_weight_grads`` where it
+    has it (dw_gemm_bf16), else the functions' own inline expression
+    (``dw_inline``); ``plain_ms``, its plain version
+    (``rnn_weight_grads_reference``: copies and the f32 einsum; the
+    inline expression where that is missing); ``library_ms``, the f32
+    einsum alone on f32 copies of the same operands (cuBLAS, TF32 off:
+    the yardstick); ``bound_ms``, the products at 989 TFLOP/s. CUDA
+    events around 20 calls. Where the helper is there, its f32 dw and db
+    are also compared with the plain version's (``rel_err``, relative
+    Frobenius gaps, and ``max_abs_err``) and held to the f64 sums of the
+    same bf16 products (``rel_err_f64`` <= DW_REL_ERR_F64; the plain
+    version's own gap to them, ``einsum_rel_err_f64``, beside it). One
+    JSON line a case, tagged ``label``, also appended to
+    ``build/chip_smoke/dw_times.jsonl``, before the check."""
+    import torch
+
+    import tpuasr_torch.ops.gru as gru_mod
+
+    dev = torch.device(device)
+    rows = []
+    helper = hasattr(gru_mod, "rnn_weight_grads")
+    for kind, t in cases:
+        emitted, gates, shift = DW_KINDS[kind]
+        h = RNN_WIDTH.get(kind, 800)
+        gen = torch.Generator(device=dev).manual_seed(t)
+        hs = (0.5 * torch.randn((t, nd, b, h), generator=gen, device=dev)).to(torch.bfloat16)
+        dhg = (0.1 * torch.randn((t, nd, b, emitted * h), generator=gen, device=dev)
+               ).to(torch.bfloat16)
+        w_h = torch.zeros((nd, h, len(gates) * h), dtype=torch.bfloat16, device=dev)
+        b_h = torch.zeros((nd, len(gates) * h), device=dev)
+        if helper:
+            def run():
+                gru_mod.rnn_weight_grads(hs, dhg, gates, w_h, b_h, shift=shift)
+
+            def plain():
+                gru_mod.rnn_weight_grads_reference(hs, dhg, gates, w_h, b_h, shift=shift)
+        else:
+            def run():
+                dw_inline(kind, hs, dhg, w_h, b_h)
+            plain = run
+        hf = (gru_mod.shift_time(hs) if shift else hs).float()
+        gf = torch.cat([dhg[..., q * h:(q + 1) * h] for q in gates], dim=-1).float()
+        flops = 2.0 * t * b * nd * h * len(gates) * h
+        ms = time_ms(run, iters=20, warmup=3)
+        lib_ms = time_ms(lambda: torch.einsum("tdbh,tdbg->dhg", hf, gf), iters=20, warmup=3)
+        row = {"label": label, "kind": kind, "shape": [t, nd, b, h], "G": len(gates) * h,
+               "ms": ms, "tflops": flops / ms / 1e9,
+               "plain_ms": time_ms(plain, iters=20, warmup=3), "library_ms": lib_ms,
+               "bound_ms": 1e3 * flops / H100_BF16_FLOPS, "bound_by": "operations",
+               "kernel": helper}
+        if helper:  # f32 outputs, so that the gaps are the sums' and not a cast's
+            w32 = torch.zeros(w_h.shape, device=dev)
+            got = gru_mod.rnn_weight_grads(hs, dhg, gates, w32, b_h, shift=shift)
+            want = gru_mod.rnn_weight_grads_reference(hs, dhg, gates, w32, b_h, shift=shift)
+            exact = (torch.einsum("tdbh,tdbg->dhg", hf.double(), gf.double()),
+                     gf.double().sum(dim=(0, 2)))
+            names = ("dw", "db")
+            row["rel_err"] = {k: rel_norm_err(g, w) for k, g, w in zip(names, got, want)}
+            row["max_abs_err"] = max((g - w).abs().max().item() for g, w in zip(got, want))
+            row["rel_err_f64"] = {k: rel_norm_err(g.double(), x)
+                                  for k, g, x in zip(names, got, exact)}
+            row["einsum_rel_err_f64"] = {k: rel_norm_err(w.double(), x)
+                                         for k, w, x in zip(names, want, exact)}
+        if hasattr(gru_mod, "rnn_dw_plan"):
+            n_sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+                     if dev.type == "cuda" else 132)  # a CPU rehearsal plans for an H100
+            plan = gru_mod.rnn_dw_plan(t * b, h, len(gates) * h, nd, n_sms)
+            row["plan"] = dataclasses.asdict(plan)
+        rows.append(record("dw_time", "dw_times.jsonl", row, smi))
+        if helper:
+            check(max(row["rel_err_f64"].values()) <= DW_REL_ERR_F64,
+                  f"dw_gemm_bf16 {kind} T'={t} vs the f64 sums: {row['rel_err_f64']}")
+    return rows
+
+
 def fwd_timing(fn, plain, args, lib_args, t, b, h, nd, n_gates=3) -> dict:
     """A forward kernel's time at (T, B, H, D) bf16: the whole call (one
     persistent launch; mean of 10 calls), its step split into parts
@@ -822,7 +947,8 @@ def phase_kernel():
 @contextlib.contextmanager
 def plain_versions(on: bool = True):
     """Every kernel wrapper that the autograd functions call replaced by
-    its plain PyTorch version (no-op when ``on`` is False)."""
+    its plain PyTorch version, the weight gradients' kernel by the f32
+    einsum (no-op when ``on`` is False)."""
     import tpuasr_torch.ops.ctc as ctc_mod
     import tpuasr_torch.ops.gru as gru_mod
     import tpuasr_torch.ops.gru2 as gru2_mod
@@ -833,14 +959,19 @@ def plain_versions(on: bool = True):
     if not on:
         yield
         return
+    dw = gru_mod.rnn_weight_grads_reference
     with mock.patch.multiple(birnn_mod, birnn_forward=birnn_mod.birnn_reference,
-                             birnn_backward=birnn_mod.birnn_backward_reference), \
+                             birnn_backward=birnn_mod.birnn_backward_reference,
+                             rnn_weight_grads=dw), \
             mock.patch.multiple(gru_mod, bigru_forward=gru_mod.bigru_reference,
-                             bigru_backward=gru_mod.bigru_backward_reference), \
+                                bigru_backward=gru_mod.bigru_backward_reference,
+                                rnn_weight_grads=dw), \
             mock.patch.multiple(gru2_mod, bigru2_forward=gru2_mod.bigru2_reference,
-                                bigru2_backward=gru2_mod.bigru2_backward_reference), \
+                                bigru2_backward=gru2_mod.bigru2_backward_reference,
+                                rnn_weight_grads=dw), \
             mock.patch.multiple(lstm_mod, bilstm_forward=lstm_mod.bilstm_reference,
-                                bilstm_backward=lstm_mod.bilstm_backward_reference), \
+                                bilstm_backward=lstm_mod.bilstm_backward_reference,
+                                rnn_weight_grads=dw), \
             mock.patch.multiple(ctc_mod, ctc_alpha=ctc_mod.ctc_alpha_reference,
                                 ctc_beta=ctc_mod.ctc_beta_reference):
         yield
@@ -1619,7 +1750,6 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
 
     import torch
 
-    import tpuasr_torch.ops.ctc as ctc_mod
     from tpuasr_torch.cli import synth_corpus
     from tpuasr_torch.cli import train as train_cli
     from tpuasr_torch.serve import TranscriptionService
@@ -1636,8 +1766,7 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
             "--batch-size", str(batch), "--epochs", str(epochs), "--checkpoint",
             "--save-folder", str(out), "--model-path", str(out / "best.ckpt"),
             "--log-dir", str(out / "log"), "--sync-every", "1", "--device", device]
-    counters = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
-    counters += [ctc_mod.ctc_alpha, ctc_mod.ctc_beta]
+    counters = list(kernel_counters().values())
     for fn in counters:  # ---- the main path starts here
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1656,8 +1785,8 @@ def phase_train(smi: str, name: str, device: str = "cuda", width=("800", "5"),
         check(np.isfinite(r["train/loss"]) and np.isfinite(r["train/grad_norm"]),
               f"non-finite step {r}")
         check(r["train/n_ok"] == batch, f"n_ok {r['train/n_ok']} != {batch}")
-    if device == "cuda":  # this path's kernels and CTC's launched, no other RNN kernel
-        used = {*RNN_PATHS[path][1:3], "ctc_alpha", "ctc_beta"}
+    if device == "cuda":  # this path's kernels, dW's and CTC's launched, no other RNN kernel
+        used = {*RNN_PATHS[path][1:3], "rnn_weight_grads", "ctc_alpha", "ctc_beta"}
         check(all((v > 0) == (k in used) for k, v in launches.items()),
               f"kernel launches on the {path} training path: {launches}")
     step_s = [r["train/step_time"] for r in steps]
@@ -1732,7 +1861,7 @@ def train_breakdown(out, paths, smi: str, path: str = "gru") -> dict:
     path's forward kernel inside: K1f, K4f or K5f), the CTC loss (K2a
     inside), the CTC backward (``CTCFromEmit.backward``, K2b inside), the
     backward's RNN kernel (K1b, K4b or K5b) calls, the rest of the RNN
-    backward (dw and db einsums, packing), the clip and the SGD step, and
+    backward (dw and db, packing), the clip and the SGD step, and
     the whole step; ``ctc_ms`` is the CTC layer's forward and backward
     (not the log-softmax's backward); ``rest`` is what no span
     covers (the backward of the convs, projections, BatchNorms and head,
@@ -3013,7 +3142,6 @@ def phase_augment_resident(smi: str, name: str, out, paths, device: str = "cuda"
     import shutil
 
     import tpuasr_torch.ops.beam as beam_mod
-    import tpuasr_torch.ops.ctc as ctc_mod
     from tpuasr_torch.cli import noise_inject, synth_corpus, train_lm
     from tpuasr_torch.cli import test as test_cli
     from tpuasr_torch.cli import train as train_cli
@@ -3040,8 +3168,7 @@ def phase_augment_resident(smi: str, name: str, out, paths, device: str = "cuda"
     cp = synth_corpus.generate(str(corpus), n_corpus, None, 0.0, seed=11, make_noise=True,
                                span=span)
     corpus_s = time.perf_counter() - t0
-    counters = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
-    counters += [ctc_mod.ctc_alpha, ctc_mod.ctc_beta, beam_mod.beam_scan]
+    counters = [*kernel_counters().values(), beam_mod.beam_scan]
     runs, launches, loaders = {}, {}, []
     resident_loader = train_cli.ResidentBatchLoader
 
@@ -3081,8 +3208,8 @@ def phase_augment_resident(smi: str, name: str, out, paths, device: str = "cuda"
                       "launches": launches[mode], "console": lines[-2:]}
         emit("train_augment", mode=mode, corpus_s=corpus_s, n_corpus=n_corpus,
              span_s=list(span), **runs[mode], nvidia_smi=smi)
-    if device == "cuda":  # the GRU path's kernels and CTC's, no other RNN kernel or K3
-        used = {"bigru_forward", "bigru_backward", "ctc_alpha", "ctc_beta"}
+    if device == "cuda":  # the GRU path's kernels, dW's and CTC's, no other RNN kernel or K3
+        used = {"bigru_forward", "bigru_backward", "rnn_weight_grads", "ctc_alpha", "ctc_beta"}
         res = launches["resident"]
         check(all((v > 0) == (k in used) for k, v in res.items()),
               f"resident training launches: {res}")
@@ -3801,11 +3928,15 @@ DIST_TIMED_STEPS = 3
 
 
 def kernel_counters() -> dict:
-    """{wrapper name: wrapper} of every kernel a training path launches."""
+    """{wrapper name: wrapper} of every kernel a training path launches:
+    the recurrent wrappers, the weight gradients' helper
+    (``rnn_weight_grads``, dw_gemm_bf16) and CTC's."""
     import tpuasr_torch.ops.ctc as ctc_mod
+    import tpuasr_torch.ops.gru as gru_mod
 
     fns = [getattr(rnn_path(k)[0], n) for k in RNN_PATHS for n in RNN_PATHS[k][1:3]]
-    return {fn.__name__: fn for fn in fns + [ctc_mod.ctc_alpha, ctc_mod.ctc_beta]}
+    fns += [gru_mod.rnn_weight_grads, ctc_mod.ctc_alpha, ctc_mod.ctc_beta]
+    return {fn.__name__: fn for fn in fns}
 
 
 def dist_config(flags: dict, width):
@@ -3879,7 +4010,7 @@ def dist_case(path: str, cfg, variables, fields, mesh, direction_tp: bool, devic
            "rows": b, "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
            "sharded_leaves": len(model.sharded), "sha256": digest.hexdigest()}
     if dev.type == "cuda":
-        used = {*DIST_KERNELS[path], "ctc_alpha", "ctc_beta"}
+        used = {*DIST_KERNELS[path], "rnn_weight_grads", "ctc_alpha", "ctc_beta"}
         check(all((v > 0) == (k in used) for k, v in launches.items()),
               f"kernel launches on {path}, rank {mesh.rank}: {launches}")
     if ref is not None:
@@ -4137,6 +4268,17 @@ def build_all(names) -> None:
     emit("build", host_library=SOURCE.name, seconds=_build.build_info[SOURCE.name]["seconds"])
 
 
+def emit_registers(label: str) -> None:
+    """One build line a library this process built or loaded: ptxas'
+    registers and spills, tagged ``label``."""
+    from tpuasr_torch.ops import _build
+
+    for n, info in sorted(_build.build_info.items()):
+        emit("build", label=label, kernel=n,
+             ptxas=[ln.strip() for ln in info["log"].splitlines()
+                    if "registers" in ln or "spill" in ln])
+
+
 def kernel_entry(name, replaces, err, timing, launches: dict, **extra):
     """One kernel's entry of the kernels line; ``launches`` by path."""
     source = "ctc" if name.startswith("ctc") else name
@@ -4172,11 +4314,12 @@ def main() -> int:
         smi = nvidia_smi_line()
         fwd_times(smi, label=sys.argv[2])
         bwd_times(smi, label=sys.argv[2])
-        from tpuasr_torch.ops import _build
-        for n, info in sorted(_build.build_info.items()):
-            emit("build", label=sys.argv[2], kernel=n,
-                 ptxas=[ln.strip() for ln in info["log"].splitlines()
-                        if "registers" in ln or "spill" in ln])
+        emit_registers(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--time-dw"]:  # LABEL [ROOT]: the weight gradients' times
+        sys.path.insert(0, sys.argv[3] if len(sys.argv) > 3 else str(ROOT))
+        dw_times(nvidia_smi_line(), label=sys.argv[2])
+        emit_registers(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--time-beam"]:  # WORK LABEL [ROOT]
         sys.path.insert(0, sys.argv[4] if len(sys.argv) > 4 else str(ROOT))
@@ -4186,7 +4329,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--stream-only"]:  # phase 10 alone, on its own inputs
         smi = nvidia_smi_line()
         emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
-        build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd"])
+        build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd",
+                   "rnn_dw"])
         t0 = time.perf_counter()
         phase_kernel_d1(smi)
         phase_stream(smi, torch.cuda.get_device_name(0), *stream_inputs())
@@ -4196,7 +4340,7 @@ def main() -> int:
         smi = nvidia_smi_line()
         emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
         build_all(["bigru_fwd", "bigru_bwd", "ctc", "bilstm_fwd", "bilstm_bwd",
-                   "bigru2_fwd", "bigru2_bwd"])
+                   "bigru2_fwd", "bigru2_bwd", "rnn_dw"])
         t0 = time.perf_counter()
         phase_distributed(smi, torch.cuda.get_device_name(0), stream_inputs()[0])
         emit("wall", seconds=time.perf_counter() - t0)
@@ -4208,7 +4352,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
     build_all(["bigru_fwd", "bigru_bwd", "ctc", "beam", "bilstm_fwd", "bilstm_bwd",
-               "bigru2_fwd", "bigru2_bwd", "birnn_fwd", "birnn_bwd"])
+               "bigru2_fwd", "bigru2_bwd", "birnn_fwd", "birnn_bwd", "rnn_dw"])
 
     k1f_row, k1f_timings = phase_kernel()
     k1b_row, k1b_timings = phase_kernel_bwd()
@@ -4218,6 +4362,7 @@ def main() -> int:
     k5_err, k5_timings = phase_kernel_gru2()
     k6_err, k6_timings = phase_kernel_rnn()
     bwd_times(smi)  # bwd_split: the backward loops' times and step split
+    dw_rows = dw_times(smi)  # dw_gemm_bf16 against the f32 einsum at the cells' shapes
     phase_fwd_row_groups()
     train_res, out, paths = phase_train(smi, name)
     train_step_parity(out, paths)
@@ -4331,6 +4476,18 @@ def main() -> int:
         *(kernel_entry(k, "none: tpuasr runs the vanilla RNN as a lax.scan", k6_err[k],
                        k6_timings[k][0], {}, timings=k6_timings[k], card=smi)
           for k in ("birnn_fwd", "birnn_bwd")),
+        # the weight gradients of every bf16 backward; plain_ms is the
+        # copies and the f32 einsum, library_ms the einsum alone
+        kernel_entry("dw_gemm_bf16", "none: tpuasr leaves dW and db to XLA's einsum",
+                     max(r["max_abs_err"] for r in dw_rows), dw_rows[0],
+                     by_path("rnn_weight_grads"),
+                     source="tpuasr_torch/ops/csrc/rnn_dw.cu (rnn_bwd.cuh)",
+                     max_rel_err={k: max(r["rel_err"][k] for r in dw_rows) for k in ("dw", "db")},
+                     max_rel_err_f64={k: max(r["rel_err_f64"][k] for r in dw_rows)
+                                      for k in ("dw", "db")},
+                     einsum_max_rel_err_f64={k: max(r["einsum_rel_err_f64"][k] for r in dw_rows)
+                                             for k in ("dw", "db")},
+                     timings=dw_rows, launches_by_rank=by_rank("rnn_weight_grads"), card=smi),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

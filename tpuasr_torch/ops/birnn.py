@@ -34,9 +34,9 @@ import torch
 from tpuasr_torch.ops.gru import (
     check_inputs,
     check_states,
+    rnn_weight_grads,
     run_backward,
     run_forward,
-    shift_time,
 )
 from tpuasr_torch.profiling import count
 
@@ -154,9 +154,9 @@ birnn_backward.launches = 0
 
 class BiRNNFunction(torch.autograd.Function):
     """``birnn_forward`` with ``birnn_backward`` as its gradient. dxg is
-    d(pre) in xg's dtype; dw is the f32 einsum of h_{t-1} (ys shifted a
-    step) and the rounded d(pre), cast to w_h's dtype; db is the rounded
-    d(pre)'s f32 sum over time and batch, as ``BiLSTMFunction`` forms
+    d(pre) in xg's dtype; dw and db are ``rnn_weight_grads`` of h_{t-1}
+    (ys read a step back) and the rounded d(pre): f32 sums over time and
+    batch, cast to w_h's and b_h's dtypes, as ``BiLSTMFunction`` forms
     them. Saves ys, not xg."""
 
     @staticmethod
@@ -169,7 +169,5 @@ class BiRNNFunction(torch.autograd.Function):
     def backward(ctx, dy):
         w_h, b_h, mask, ys = ctx.saved_tensors
         dpre = birnn_backward(w_h, mask, ys, dy.to(ys.dtype).contiguous())
-        dpre_f = dpre.to(torch.float32)
-        dw = torch.einsum("tdbh,tdbg->dhg", shift_time(ys).to(torch.float32), dpre_f)
-        db = dpre_f.sum(dim=(0, 2))
-        return dpre, dw.to(w_h.dtype), db.to(b_h.dtype), None
+        dw, db = rnn_weight_grads(ys, dpre, (0,), w_h, b_h, shift=1)
+        return dpre, dw, db, None

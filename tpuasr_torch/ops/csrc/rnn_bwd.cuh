@@ -47,6 +47,19 @@
 // alone, on ys in h_{t-1}'s place and without xg. A trace names it
 // rnn_bwd_loop<T, 1>.
 //
+// 3. dw_gemm_bf16 (after the loop, by the autograd functions through
+//    ops.gru.rnn_weight_grads; its own library, rnn_dw.cu): the weight gradients dw = sum over every
+//    step and row of h_{t-1}^T dhg and db = sum of dhg, both operands read
+//    in place in bf16 from h_prev (or ys a step back) and the emitted
+//    gradients, through a gate map; f32 accumulators on the tensor cores.
+//    It replaces no TPU kernel: tpuasr leaves these sums to XLA's einsum.
+//    Bound: 2 (T*B) H NG*H operations a direction, ~56 GFLOP at the GRU
+//    cell's mean bucket (T'=226, B=32, H=800, D=2; 56 us at 989 TFLOP/s)
+//    against 0.11 GB read once and written (h_prev 23 MB, three gates of
+//    the packed gradients 69 MB, dw 15 MB: 32 us at 3.35 TB/s):
+//    operations bound it, as long as the tiles that run at once share
+//    their loads in L2.
+//
 // A per-part step timer (clock64 spans of thread 0, summed over steps:
 // the wait for HG[t], the gate math, the barrier wait, the wait for dhg's
 // words, the rest of the carry product with its reduction, and the whole
@@ -131,6 +144,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
@@ -332,6 +350,262 @@ int hg_gemm(const void* hp, const void* w_h, WLayout wl, const float* b_h, float
                                           B, D, H, NG, HP);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------- weight gradients
+
+constexpr int DW_BM = 128, DW_BN = 128, DW_BK = 32;  // outputs k x c; rows m a k-step
+constexpr int DW_STAGES = 4, DW_THREADS = 256;       // 8 warps of 32 x 64 outputs
+constexpr int DW_LD = 128 + 8;  // bf16 a staged row of either operand (272 bytes: no bank conflict)
+constexpr int DW_STAGE = 2 * DW_BK * DW_LD;  // bf16 a stage: A's 32 rows, then B's
+constexpr int DW_SMEM = DW_STAGES * DW_STAGE * 2;  // 69,632 bytes
+constexpr int DW_TILE4 = DW_BM * DW_BN / 4;        // float4s of one tile's partial sums
+
+// One call of dw_gemm_bf16. Strides in elements.
+struct DwArgs {
+  const __nv_bfloat16* h;  // element (t, d, b, k) of h at t*ht + d*hd + b*hb + k
+  const __nv_bfloat16* g;  // element (t, d, b, gate q, unit j) of the gate gradients at
+                           // t*gt + d*gd + b*gb + q*gq + j
+  float* dw;               // element (d, k, c = q*H + j) at d*wd + k*wk + q*wg + j
+  float* db;               // (D, G)
+  float* part;             // (blocks, 2, DW_TILE4) float4 partial tiles: a block's first, last
+  unsigned int* arrive;    // (tiles) blocks done with each tile, zero at the call's start
+  long long ht, hd, hb, gt, gd, gb, gq, wd, wk, wg;
+  int gate[4];  // output gate q reads gate gate[q] of g
+  int T, D, B, H, G, shift, per;  // G = NG*H; per: k-steps a block
+};
+
+// dw[d][k, c] = sum_m h[t - shift, d, b, k] g[t, d, b, gate[c / H], c % H] and
+// db[d][c] = sum_m g[...] over every row m = t*B + b < T*B (h is zero at
+// t - shift < 0; masked rows carry zero gradients and stay in the sum),
+// for k < H and c < G. Both operands are bf16 and read in place; their
+// products are exact in f32 and accumulate in f32 (mma.sync m16n8k16), so
+// dw and db are an f32 einsum's sums in another order. db is output row
+// k = H: A's column H is a column of ones.
+//
+// Tiles of 128 x 128 outputs (tile = (d * rows of tiles + ty) * columns of
+// tiles + tx), 8 warps of 32 x 64; the rows m in k-steps of 32 through a
+// 4-stage cp.async ring, both operands staged m-major, as they lie in
+// memory, and read with ldmatrix.trans. The work, every tile's k-steps in
+// order, is dealt in equal ranges of `per` k-steps to the blocks (stream-K:
+// no wave of the card is left a few tiles long). A block's range covers the
+// end of a tile, whole tiles and the start of another: a whole tile it
+// writes, a part it leaves in `part` (slot 0: its first tile, slot 1: its
+// last), and the last block of a tile to arrive (an integer count) adds the
+// tile's parts in block order, so the sums' order is fixed and a call
+// gives the same bits every time. VEC: H % 8 == 0 and 16-byte aligned rows,
+// so a 16-byte copy never crosses a row or a gate; else element loads.
+template <bool VEC>
+__global__ void __launch_bounds__(DW_THREADS, 2) dw_gemm_bf16(const DwArgs a) {
+  extern __shared__ __align__(16) __nv_bfloat16 dw_smem[];
+  __shared__ int last_part;
+  const int H = a.H, G = a.G, B = a.B;
+  const int nx = (G + DW_BN - 1) / DW_BN, ny = (H + DW_BM) / DW_BM;
+  const int kt = (a.T * B + DW_BK - 1) / DW_BK;  // k-steps of a tile
+  const long long total = static_cast<long long>(a.D) * ny * nx * kt;
+  const long long begin = static_cast<long long>(blockIdx.x) * a.per;
+  const long long end = min(total, begin + a.per);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps of 32 x 64
+  const int gq = lane / 4, tq = lane % 4;
+  auto As = [&](int st, int r, int c) { return dw_smem + st * DW_STAGE + r * DW_LD + c; };
+  auto Bs = [&](int st, int r, int c) {
+    return dw_smem + st * DW_STAGE + (DW_BK + r) * DW_LD + c;
+  };
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f), one = __float2bfloat16_rn(1.0f);
+  const int cc = (tid % 16) * 8, r0 = tid / 16;  // VEC: 16 bytes of rows r0 and r0 + 16
+  const int dt_step = DW_BK / B, db_step = DW_BK - dt_step * B;
+
+  for (long long at = begin; at < end;) {
+    const int tile = static_cast<int>(at / kt);
+    const int kb = static_cast<int>(at - static_cast<long long>(tile) * kt);
+    const int ke = static_cast<int>(min(static_cast<long long>(kt), kb + (end - at)));
+    at += ke - kb;
+    const int tx = tile % nx, ty = (tile / nx) % ny, d = tile / (nx * ny);
+    const int k0 = ty * DW_BM, n0 = tx * DW_BN;
+    const __nv_bfloat16* h_d = a.h + d * a.hd;
+    const __nv_bfloat16* g_d = a.g + d * a.gd;
+    const bool a_col = k0 + cc < H;  // else all 8 columns past H: the staged constant
+    const bool b_col = n0 + cc < G;
+    long long b_off = 0;
+    if (b_col) {
+      const int q = (n0 + cc) / H;
+      b_off = a.gate[q] * a.gq + (n0 + cc - q * H);
+    }
+    int rt[2], rb[2];  // (t, b) of rows r0 + 16i at the next k-step to load
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = kb * DW_BK + r0 + 16 * i;
+      rt[i] = m / B, rb[i] = m - rt[i] * B;
+    }
+    __syncthreads();  // the last segment's stages are read
+    if (VEC && k0 + DW_BM > H) {  // the columns past H: ones at H, zeros after it
+      for (int p = tid; p < DW_STAGES * DW_BK * DW_BM; p += DW_THREADS) {
+        const int c = p % DW_BM, r = p / DW_BM;
+        if (k0 + c >= H) *As(r / DW_BK, r % DW_BK, c) = k0 + c == H ? one : zero;
+      }
+    }
+
+    auto load = [&](int st, int kit) {
+      if constexpr (VEC) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r0 + 16 * i, th = rt[i] - a.shift;
+          const bool row = rt[i] < a.T;
+          if (a_col) {
+            const bool ok = row && th >= 0;
+            cp_async16(As(st, r, cc), ok ? h_d + th * a.ht + rb[i] * a.hb + k0 + cc : a.h, ok);
+          }
+          const bool ok = row && b_col;
+          cp_async16(Bs(st, r, cc), ok ? g_d + rt[i] * a.gt + rb[i] * a.gb + b_off : a.g, ok);
+          rt[i] += dt_step, rb[i] += db_step;
+          if (rb[i] >= B) rb[i] -= B, ++rt[i];
+        }
+      } else {
+        for (int p = tid; p < DW_BK * DW_BM; p += DW_THREADS) {
+          const int r = p / DW_BM, c = p % DW_BM;
+          const int m = kit * DW_BK + r, t = m / B, b = m - t * B, th = t - a.shift;
+          const int k = k0 + c, n = n0 + c;
+          __nv_bfloat16 av = k == H ? one : zero, bv = zero;
+          if (t < a.T && k < H && th >= 0) av = h_d[th * a.ht + b * a.hb + k];
+          if (t < a.T && n < G) {
+            const int q = n / H;
+            bv = g_d[t * a.gt + b * a.gb + a.gate[q] * a.gq + (n - q * H)];
+          }
+          *As(st, r, c) = av;
+          *Bs(st, r, c) = bv;
+        }
+      }
+    };
+
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+    const int n_it = ke - kb;
+#pragma unroll
+    for (int p = 0; p < DW_STAGES - 1; ++p) {
+      if (p < n_it) load(p, kb + p);
+      cp_async_commit();
+    }
+    for (int it = 0; it < n_it; ++it) {
+      cp_async_wait<DW_STAGES - 2>();
+      __syncthreads();  // stage it has landed; stage it - 1 is free for the next load
+      const int nxt = it + DW_STAGES - 1;
+      if (nxt < n_it) load(nxt % DW_STAGES, kb + nxt);
+      cp_async_commit();
+      const int st = it % DW_STAGES;
+#pragma unroll
+      for (int ks = 0; ks < DW_BK; ks += 16) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)  // A = h^T: 8 x 8 blocks (k, m) from the m-major rows
+          ldmatrix_x4_trans(af[i], As(st, ks + (lane / 16) * 8 + lane % 8,
+                                      wm * 32 + i * 16 + ((lane / 8) & 1) * 8));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t bq[4];  // B fragments of n-tiles 2jj and 2jj + 1
+          ldmatrix_x4_trans(bq, Bs(st, ks + lane % 16, wn * 64 + (2 * jj + lane / 16) * 8));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma_bf16(acc[i][2 * jj], af[i][0], af[i][1], af[i][2], af[i][3], bq[0], bq[1]);
+            mma_bf16(acc[i][2 * jj + 1], af[i][0], af[i][1], af[i][2], af[i][3], bq[2],
+                     bq[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+
+    if (kb > 0 || ke < kt) {  // a part: the tile's last block to arrive adds all parts
+      const long long t0 = static_cast<long long>(tile) * kt;
+      const int first = static_cast<int>(t0 / a.per);
+      const int last = static_cast<int>((t0 + kt - 1) / a.per);
+      auto slot = [&](int blk) {  // where block blk left its part of this tile
+        const int mine = static_cast<long long>(blk) * a.per >= t0 ? 0 : 1;
+        return reinterpret_cast<float4*>(a.part) + (2 * static_cast<size_t>(blk) + mine) * DW_TILE4;
+      };
+      float4* own = slot(blockIdx.x);
+#pragma unroll
+      for (int v = 0; v < 16; ++v) {
+        const float* x = acc[v / 8][v % 8];
+        own[v * DW_THREADS + tid] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0)
+        last_part = atomicAdd(a.arrive + tile, 1u) == static_cast<unsigned int>(last - first);
+      __syncthreads();
+      if (!last_part) continue;
+      __threadfence();
+#pragma unroll
+      for (int v = 0; v < 16; ++v) {
+        float* x = acc[v / 8][v % 8];
+        float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int blk = first; blk <= last; ++blk) {
+          const float4 p = blk == static_cast<int>(blockIdx.x)
+                               ? make_float4(x[0], x[1], x[2], x[3])
+                               : __ldcg(slot(blk) + v * DW_THREADS + tid);
+          if (blk == first) {
+            sum = p;
+          } else {
+            sum.x += p.x, sum.y += p.y, sum.z += p.z, sum.w += p.w;
+          }
+        }
+        x[0] = sum.x, x[1] = sum.y, x[2] = sum.z, x[3] = sum.w;
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = k0 + wm * 32 + i * 16 + gq + half * 8;
+        if (k > H) continue;
+        float* row = k < H ? a.dw + d * a.wd + k * a.wk : a.db + static_cast<size_t>(d) * G;
+        auto col = [&](int n) {  // column n's offset in the row
+          if (k == H) return static_cast<long long>(n);
+          const int q = n / H;
+          return q * a.wg + (n - q * H);
+        };
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = n0 + wn * 64 + j * 8 + tq * 2;
+          if (n >= G) continue;
+          const float v0 = acc[i][j][half * 2], v1 = acc[i][j][half * 2 + 1];
+          if constexpr (VEC) {  // n even, G % 8 == 0: n + 1 is in n's gate
+            *reinterpret_cast<float2*>(row + col(n)) = make_float2(v0, v1);
+          } else {
+            row[col(n)] = v0;
+            if (n + 1 < G) row[col(n + 1)] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Launches dw_gemm_bf16 on `blocks` blocks (VEC where every operand allows
+// 16-byte copies).
+inline int dw_gemm(const DwArgs& a, int blocks, cudaStream_t stream) {
+  const auto aligned = [](const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const bool vec = a.H % 8 == 0 && aligned(a.h, 16) && aligned(a.g, 16) && aligned(a.dw, 8) &&
+                   aligned(a.db, 8) && (a.ht | a.hd | a.hb | a.gt | a.gd | a.gb | a.gq) % 8 == 0 &&
+                   (a.wd | a.wk | a.wg) % 2 == 0;
+  auto launch = [&](auto kernel) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, DW_THREADS, DW_SMEM, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return vec ? launch(dw_gemm_bf16<true>) : launch(dw_gemm_bf16<false>);
 }
 
 // ------------------------------------------------------ persistent loop

@@ -11,8 +11,10 @@ every step, masked frames carrying h through.
 ``tpuasr/ops/gru.py:_bwd_kernel``: the reverse-time gate gradients,
 packed ``[dr_pre, dz_pre, dn_pre, dhn]`` (4H) in xg's dtype, with an
 f32 carried dh. ``bigru_backward_reference`` is its plain version.
-``BiGRUFunction`` is the autograd function around both, forming dxg,
-dw and db from the packed gradients as ``_bigru_bwd`` does.
+``BiGRUFunction`` is the autograd function around both, forming dxg
+from the packed gradients, and dw and db through ``rnn_weight_grads``,
+the weight gradients of every RNN backward (all four autograd
+functions; ``csrc/rnn_dw.cu`` for bf16 on CUDA), as ``_bigru_bwd`` does.
 
 The wrappers use the plain versions only for CPU tensors; on a CUDA
 tensor they launch the kernel or raise.
@@ -31,12 +33,15 @@ import torch
 
 from tpuasr_torch.ops import _build
 from tpuasr_torch.ops.rnn_plan import (
+    DW_TILE,
     max_bwd_rows,
     max_fwd_rows,
     rnn_bwd_plan,
+    rnn_dw_plan,
     rnn_fwd_plan,
     row_groups,
 )
+from tpuasr_torch.profiling import count
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -190,13 +195,16 @@ def check_states(xg: torch.Tensor, shape: tuple, **states: torch.Tensor) -> None
 @functools.cache
 def kernel_library(name: str) -> ctypes.CDLL:
     """The library of an RNN kernel (built on first use), ``bigru[2]_fwd``,
-    ``bilstm_fwd``, ``birnn_fwd``, ``bigru[2]_bwd``, ``bilstm_bwd`` or
-    ``birnn_bwd``, with its C signatures; the forward libraries share
-    theirs (the LSTM's adds cs), and so do the backward ones (the vanilla
-    RNN's has no hg GEMM)."""
+    ``bilstm_fwd``, ``birnn_fwd``, ``bigru[2]_bwd``, ``bilstm_bwd``,
+    ``birnn_bwd`` or ``rnn_dw``, with its C signatures; the forward
+    libraries share theirs (the LSTM's adds cs), and so do the backward
+    ones (the vanilla RNN's has no hg GEMM); ``rnn_dw`` holds the weight
+    gradients' kernel of every backward (``tpuasr_rnn_dw``)."""
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name.endswith("fwd"):
+    if name == "rnn_dw":
+        fns = {"tpuasr_rnn_dw": [p] * 8}
+    elif name.endswith("fwd"):
         n_out = 2 if name == "bilstm_fwd" else 1  # ys (and cs)
         fns = {f"tpuasr_{name}": [p] * (4 + n_out) + [p] * 3 + [i] * 5 + [p]}
     else:
@@ -383,6 +391,113 @@ def run_forward(name: str, n_gates: int, xg: torch.Tensor, w_h: torch.Tensor,
     return len(groups)
 
 
+def rnn_weight_grads(h: torch.Tensor, dhg: torch.Tensor, gates: tuple, w_h: torch.Tensor,
+                     b_h: torch.Tensor, shift: int = 0):
+    """The recurrent weights' gradients of an RNN backward (every autograd
+    function of the fused RNNs forms its dw and db here):
+    dw[d][k, q*H + j] = sum_{t,b} h_{t-1}[t, d, b, k] dhg_q[t, d, b, j] and
+    db[d][q*H + j] = sum_{t,b} dhg_q[t, d, b, j], where dhg_q is gate
+    ``gates[q]`` of the emitted gradients ``dhg`` (masked rows hold zeros).
+
+    Args:
+      h: (T, D, B, H): h_{t-1} when ``shift`` is 0; h_t (ys) when it is 1,
+        read a step back (zero at t = 0).
+      dhg: the gate gradients as the backward emitted them, (T, D, B, P*H)
+        or gate-major (T, D, P, B, H), in h's dtype.
+      gates: the gates of dhg that w_h's gates read, in w_h's order (the
+        GRU's packed [dr, dz, dn, dhn]: (0, 1, 3)).
+      w_h, b_h: dw and db come back in their shapes and dtypes ((D, H,
+        NG*H) or gate-major (D, NG, H, H); (D, NG*H) or (D, NG, H)).
+
+    bf16 on CUDA runs ``dw_gemm_bf16`` (``csrc/rnn_dw.cu``, one launch a
+    call, counted in ``rnn_weight_grads.launches``): the bf16 operands in
+    place, f32 sums, so it differs from the einsum only in the order of
+    the additions, and gives the same bits on every call. Everything else
+    (f32, the CPU) takes the f32 einsum, ``rnn_weight_grads_reference``.
+    Each call counts as one backward in ``tpuasr_torch.profiling`` while a
+    profile runs: ``rnn.dw_kernel_calls`` once the kernel has launched
+    (a call with no rows launches nothing and counts nothing), or
+    ``rnn.dw_einsum_calls``.
+    """
+    if h.device.type == "cuda" and h.dtype == torch.bfloat16:
+        dw, db = _dw_kernel(h, dhg, gates, w_h, b_h, shift)
+        return dw.to(w_h.dtype), db.to(b_h.dtype)
+    count("rnn.dw_einsum_calls")
+    return rnn_weight_grads_reference(h, dhg, gates, w_h, b_h, shift)
+
+
+rnn_weight_grads.launches = 0
+
+
+def rnn_weight_grads_reference(h: torch.Tensor, dhg: torch.Tensor, gates: tuple,
+                               w_h: torch.Tensor, b_h: torch.Tensor, shift: int = 0):
+    """``rnn_weight_grads`` as the f32 einsum of f32 copies of the same
+    values (the gates gathered, h shifted where ``shift`` is 1), whatever
+    the device: the plain version of ``dw_gemm_bf16``."""
+    gate_major = dhg.dim() == 5
+    hd = h.shape[-1]
+    emitted = dhg.shape[2] if gate_major else dhg.shape[-1] // hd  # gates dhg holds
+    hf = (shift_time(h) if shift else h).to(torch.float32)
+    g = dhg
+    if tuple(gates) != tuple(range(emitted)):  # the gates w_h reads, in its order
+        g = (dhg[:, :, list(gates)] if gate_major else
+             torch.cat([dhg[..., q * hd:(q + 1) * hd] for q in gates], dim=-1))
+    g = g.to(torch.float32)
+    if gate_major:
+        dw = torch.einsum("tdbh,tdgbk->dghk", hf, g)
+        db = g.sum(dim=(0, 3))
+    else:
+        dw = torch.einsum("tdbh,tdbg->dhg", hf, g)
+        db = g.sum(dim=(0, 2))
+    return dw.to(w_h.dtype), db.to(b_h.dtype)
+
+
+def _dw_kernel(h, dhg, gates, w_h, b_h, shift):
+    """``rnn_weight_grads``' kernel path: f32 dw and db from one launch of
+    ``dw_gemm_bf16`` on the grid of ``rnn_dw_plan``; raises on what the
+    kernel does not take."""
+    t_len, nd, b, hd = h.shape
+    n_gates = len(gates)
+    gate_major = dhg.dim() == 5
+    emitted = dhg.shape[2] if gate_major else dhg.shape[-1] // hd  # gates dhg holds
+    want = (t_len, nd, dhg.shape[2], b, hd) if gate_major else (t_len, nd, b, dhg.shape[-1])
+    if (tuple(dhg.shape) != want or dhg.dtype != h.dtype or dhg.device != h.device
+            or not 1 <= n_gates <= 4 or not all(0 <= q < emitted for q in gates)):
+        raise ValueError(f"gate gradients {tuple(dhg.shape)} {dhg.dtype} do not match h "
+                         f"{tuple(h.shape)} {h.dtype} and gates {gates}")
+    if not (h.is_contiguous() and dhg.is_contiguous()):
+        raise ValueError("h and the gate gradients must be contiguous")
+    f32 = dict(dtype=torch.float32, device=h.device)
+    dw, db = torch.empty(w_h.shape, **f32), torch.empty(b_h.shape, **f32)
+    if dw.numel() != nd * hd * n_gates * hd or db.numel() != nd * n_gates * hd:
+        raise ValueError(f"w_h {tuple(w_h.shape)} and b_h {tuple(b_h.shape)} do not hold "
+                         f"{n_gates} gates of {hd} units")
+    if t_len * b == 0:
+        return dw.zero_(), db.zero_()
+    plan = rnn_dw_plan(t_len * b, hd, n_gates * hd, nd, _card("rnn_dw", h.device)[0])
+    part = torch.empty((plan.blocks, 2, DW_TILE * DW_TILE), **f32)  # a block's first, last tile
+    arrive = torch.zeros((plan.tiles,), dtype=torch.int32, device=h.device)
+    ht, hd_s, hb = h.stride()[:3]
+    if gate_major:
+        gt, gd, gq, gb = dhg.stride()[:4]
+        wd, wg, wk = dw.stride()[:3]
+    else:
+        (gt, gd, gb), gq = dhg.stride()[:3], hd
+        (wd, wk), wg = dw.stride()[:2], hd
+    dims = [t_len, nd, b, hd, n_gates * hd, shift, plan.blocks, plan.per,
+            ht, hd_s, hb, gt, gd, gb, gq, wd, wk, wg, *gates, *[0] * (4 - n_gates)]
+    lib = kernel_library("rnn_dw")
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.tpuasr_rnn_dw(h.data_ptr(), dhg.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                part.data_ptr(), arrive.data_ptr(),
+                                (ctypes.c_longlong * len(dims))(*dims), stream)
+    raise_on(lib, err, "rnn_dw")
+    rnn_weight_grads.launches += 1
+    count("rnn.dw_kernel_calls")
+    return dw, db
+
+
 def bigru_forward(xg: torch.Tensor, w_h: torch.Tensor, b_h: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Fused GRU time loop over D directions: (T, D, B, 3H) -> (T, D, B, H).
@@ -442,10 +557,11 @@ bigru_backward.launches = 0
 class BiGRUFunction(torch.autograd.Function):
     """``bigru_forward`` with ``bigru_backward`` as its gradient (the
     ``custom_vjp`` of ``tpuasr.ops.gru.bigru_pallas``). dxg is the
-    packed gradient's first 3H columns in xg's dtype; dw is the f32
-    einsum of h_prev and dhg = [dr_pre, dz_pre, dhn] (read back from the
-    rounded packed output), cast to w_h's dtype; db is dhg's f32 sum.
-    Each gradient comes back in its input's dtype, as in the JAX package.
+    packed gradient's first 3H columns in xg's dtype; dw and db are
+    ``rnn_weight_grads`` of h_prev and dhg = [dr_pre, dz_pre, dhn] (read
+    from the rounded packed output in place): f32 sums, cast to w_h's
+    and b_h's dtypes. Each gradient comes back in its input's dtype, as
+    in the JAX package.
     """
 
     @staticmethod
@@ -457,13 +573,8 @@ class BiGRUFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xg, w_h, b_h, mask, ys = ctx.saved_tensors
-        g3 = xg.shape[-1]
-        h = g3 // 3
         h_prev = shift_time(ys)
         packed = bigru_backward(xg, w_h, b_h, mask, h_prev,
                                 dy.to(xg.dtype).contiguous())
-        dxg = packed[..., :g3]
-        dhg = torch.cat([packed[..., :2 * h], packed[..., g3:]], dim=-1).to(torch.float32)
-        dw = torch.einsum("tdbh,tdbg->dhg", h_prev.to(torch.float32), dhg)
-        db = dhg.sum(dim=(0, 2))
-        return dxg, dw.to(w_h.dtype), db.to(b_h.dtype), None
+        dw, db = rnn_weight_grads(h_prev, packed, (0, 1, 3), w_h, b_h)
+        return packed[..., :xg.shape[-1]], dw, db, None

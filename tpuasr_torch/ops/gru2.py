@@ -28,6 +28,7 @@ from tpuasr_torch.ops.gru import (
     BWD_LAUNCHES,
     check_inputs,
     check_states,
+    rnn_weight_grads,
     run_backward,
     run_forward,
     shift_time,
@@ -179,9 +180,9 @@ class BiGRU2Function(torch.autograd.Function):
     """``bigru2_forward`` with ``bigru2_backward`` as its gradient (the
     ``custom_vjp`` of ``tpuasr.ops.gru2.bigru_pallas2``,
     ``tpuasr/ops/gru2.py:243-250``). dxg is dg's first three gates in
-    xg's dtype; dw is the f32 einsum of h_prev and dhg = [dr_pre, dz_pre,
-    dhn] (read back from the rounded dg), gate-major (D, 3, H, H) in
-    w_h's dtype; db is dhg's f32 sum over time and batch.
+    xg's dtype; dw and db are ``rnn_weight_grads`` of h_prev and dhg =
+    [dr_pre, dz_pre, dhn] (read from the rounded dg in place): f32 sums
+    over time and batch, gate-major (D, 3, H, H) in w_h's dtype.
     """
 
     @staticmethod
@@ -195,8 +196,5 @@ class BiGRU2Function(torch.autograd.Function):
         xg, w_h, b_h, mask, ys = ctx.saved_tensors
         h_prev = shift_time(ys)
         dg = bigru2_backward(xg, w_h, b_h, mask, h_prev, dy.to(xg.dtype).contiguous())
-        dgf = dg.to(torch.float32)
-        dhg = torch.stack([dgf[:, :, 0], dgf[:, :, 1], dgf[:, :, 3]], dim=2)
-        dw = torch.einsum("tdbh,tdgbk->dghk", h_prev.to(torch.float32), dhg)
-        db = dhg.sum(dim=(0, 3))
-        return dg[:, :, :3], dw.to(w_h.dtype), db.to(b_h.dtype), None
+        dw, db = rnn_weight_grads(h_prev, dg, (0, 1, 3), w_h, b_h)
+        return dg[:, :, :3], dw, db, None

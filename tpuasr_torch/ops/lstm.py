@@ -29,6 +29,7 @@ from tpuasr_torch.ops.gru import (
     BWD_LAUNCHES,
     check_inputs,
     check_states,
+    rnn_weight_grads,
     run_backward,
     run_forward,
     shift_time,
@@ -185,9 +186,9 @@ bilstm_backward.launches = 0
 class BiLSTMFunction(torch.autograd.Function):
     """``bilstm_forward``'s ys with ``bilstm_backward`` as its gradient
     (the ``custom_vjp`` of ``tpuasr.ops.lstm.bilstm_pallas``). dxg is dhg
-    in xg's dtype; dw is the f32 einsum of h_prev and the rounded dhg,
-    cast to w_h's dtype; db is the rounded dhg's f32 sum over time and
-    batch (``tpuasr/ops/lstm.py:266-275``).
+    in xg's dtype; dw and db are ``rnn_weight_grads`` of h_prev and the
+    rounded dhg: f32 sums over time and batch, cast to w_h's and b_h's
+    dtypes (``tpuasr/ops/lstm.py:266-275``).
     """
 
     @staticmethod
@@ -202,7 +203,5 @@ class BiLSTMFunction(torch.autograd.Function):
         h_prev = shift_time(ys)
         dhg = bilstm_backward(xg, w_h, b_h, mask, h_prev, shift_time(cs), cs,
                               dy.to(xg.dtype).contiguous())
-        dhg_f = dhg.to(torch.float32)
-        dw = torch.einsum("tdbh,tdbg->dhg", h_prev.to(torch.float32), dhg_f)
-        db = dhg_f.sum(dim=(0, 2))
-        return dhg, dw.to(w_h.dtype), db.to(b_h.dtype), None
+        dw, db = rnn_weight_grads(h_prev, dhg, (0, 1, 2, 3), w_h, b_h)
+        return dhg, dw, db, None

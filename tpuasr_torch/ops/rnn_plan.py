@@ -272,3 +272,35 @@ def max_fwd_rows(D: int, H: int, n_gates: int, itemsize: int, n_sms: int,
     """The largest batch for which ``rnn_fwd_plan`` does not raise."""
     _check("forward", D, 1, H, n_gates, itemsize, n_sms)
     return _max_rows(_fwd_state, _slicing(D, H, n_sms)[2], n_gates, smem_per_block)
+
+
+DW_TILE = 128          # dw_gemm_bf16's output tile: 128 units k x 128 gate columns
+DW_KSTEP = 32          # rows m = t*B + b of one pipeline stage
+DW_BLOCKS_PER_SM = 2   # its __launch_bounds__ and shared memory (69,632 bytes a block)
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """dw_gemm_bf16's grid for one (T*B, H, NG*H, D): ``tiles`` output
+    tiles (all directions; db is one more row of units) of ``ksteps``
+    k-steps each, dealt in ranges of ``per`` k-steps to ``blocks``
+    blocks."""
+
+    tiles: int
+    ksteps: int
+    blocks: int
+    per: int
+
+
+def rnn_dw_plan(M: int, H: int, G: int, D: int, n_sms: int) -> DwPlan:
+    """The weight gradients' grid for M = T*B rows, H units, G = NG*H
+    gate columns and D directions on a card of ``n_sms`` SMs: every
+    tile's k-steps in order, cut into equal ranges for as many blocks as
+    the card holds at once (stream-K), so that no wave runs a few tiles
+    alone whatever the tile count; never an empty range."""
+    tiles = D * -(-(H + 1) // DW_TILE) * -(-G // DW_TILE)
+    ksteps = -(-M // DW_KSTEP)
+    total = tiles * ksteps
+    blocks = max(1, min(n_sms * DW_BLOCKS_PER_SM, total))
+    per = max(1, -(-total // blocks))
+    return DwPlan(tiles=tiles, ksteps=ksteps, blocks=max(1, -(-total // per)), per=per)
